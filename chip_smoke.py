@@ -16,6 +16,13 @@ exits non-zero:
   golden   chain 1, F = 1024: proof bytes equal tests/golden/, verifies, a
            tampered proof is rejected
   mid      chain 125, F = 2^16: cuda and cpu provers give identical bytes
+  airs     Fibonacci and MiMC through the same Stark at full width
+           (1 048 481 rows, omicron domain 2^20): cold and warm prove,
+           verify, a tampered proof and a wrong output rejected, launches per
+           kernel; and a small run of each on cuda and on cpu, bytes identical
+  resume   chain 125 with checkpoint_dir=: same bytes as without; a second
+           prove resumes (no NTT launched); with the last two FRI snapshots
+           deleted it resumes mid-FRI; another seed does not resume
   full     chain 32765, F = 2^24 (the main path at its real size): launch
            counts reset, cold prove, counts read; warm prove; verify; phase
            split; peak device memory
@@ -60,21 +67,33 @@ INT32_OPS_PER_S = 33.5e12
 #: mont_mul: 4 rounds of (4 wide multiply-adds of a*b[i], 1 for m*p's top
 #: word, ~5 carry adds) = 40, plus the conditional subtract's 12, rounded
 #: up to 60 for the negations and carries into the fifth word. A butterfly
-#: is one product, one add, one sub = 84. Blake2b: a G is 6 64-bit adds,
+#: is one product, one add, one sub = 84. fp_pow_const's unit is one
+#: Montgomery product (bits + popcount - 2 of them per element). Blake2b: a G is 6 64-bit adds,
 #: 4 xors, and rotates by 24, 16 and 63 (the one by 32 is free) at 2
 #: operations each = 26; 96 G per block = 2496.
 OPS_PER_UNIT = {
-    "fp_add": 12, "fp_sub": 12, "fp_mont_mul": 60,
+    "fp_add": 12, "fp_sub": 12, "fp_mont_mul": 60, "fp_butterfly": 84, "fp_pow_const": 60,
     "ntt_block": 84, "ntt_stage": 84, "blake2b_planes": 2496,
 }
 KERNEL_SOURCES = {
     "fp_add": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:140"),
     "fp_sub": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:144"),
     "fp_mont_mul": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:148"),
+    "fp_butterfly": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:152"),
+    "fp_pow_const": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:266"),
     "ntt_block": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:95"),
     "ntt_stage": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:128"),
     "blake2b_planes": ("stark_anatomy_tpu_torch/csrc/blake2b.cu", "stark_anatomy_tpu/ops/blake2b_pallas.py:68"),
 }
+#: the kernels every Stark.prove launches; fp_butterfly is on the ops surface
+#: only (ntt_stage fuses the same arithmetic in place), so a prove launches
+#: it no time and the kernels phase alone holds it against its plain version.
+PROVE_PATH_KERNELS = ("fp_add", "fp_sub", "fp_mont_mul", "fp_pow_const", "ntt_block", "ntt_stage",
+                      "blake2b_planes")
+OPS_SURFACE_ONLY = ("fp_butterfly",)
+#: steps of the Fibonacci and MiMC traces of the airs phase: 1 048 481 rows,
+#: the omicron domain 2^20 that chain 32765 gives Rescue-Prime
+AIR_STEPS = 1048480
 GOLDEN = os.path.join(ROOT, "tests", "golden", "proof_rescue_chain1.json")
 
 
@@ -171,7 +190,7 @@ def phase_kernels(results: dict) -> None:
     from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
     from stark_anatomy_tpu_torch.ops import ntt_kernels
-    from stark_anatomy_tpu_torch.ops.field import finv
+    from stark_anatomy_tpu_torch.ops.field import PRIME, finv
     from stark_anatomy_tpu_torch.ops.limbs import mont, to_tensor
 
     report = []
@@ -204,10 +223,44 @@ def phase_kernels(results: dict) -> None:
     check("fp_mont_mul", "strided views + out=", out[:, half:],
           ft.mont_mul(big[:, :half].contiguous(), big[:, half:].contiguous()))
 
-    # inv (composed of fp_mont_mul launches): ladder and batch branches, 0 -> 0.
+    # pow_const: any 128-bit input (p, p + 1, 2^128 - 1 among the edges),
+    # exponents 0 and 1, the Fermat exponent, one of exactly 128 bits and one
+    # past the four words (walked in 64-bit windows); a strided view; out=a.
+    for n in (1, 1000, 1 << 20):
+        a = edge_words(n, 14)
+        for e in (0, 1, 2, 12345, PRIME - 2, 1 << 127, (1 << 128) + 5):
+            check("fp_pow_const", f"n={n} e={e:#x}", fk.pow_const(a, e), ft.pow_const(a, e))
+    want = ft.pow_const(big[:, half:].contiguous(), 12345)
+    check("fp_pow_const", "strided view", fk.pow_const(big[:, half:], 12345), want)
+    alias = big[:, half:].clone()
+    fk.pow_const(alias, 12345, out=alias)
+    check("fp_pow_const", "out=a", alias, want)
+    fk.pow_const(big[:, half:], (1 << 128) + 5, out=out[:, :half])
+    check("fp_pow_const", "windows + out= view", out[:, :half],
+          ft.pow_const(big[:, half:].contiguous(), (1 << 128) + 5))
+
+    # inv: the Fermat power (one fp_pow_const launch) alone and at the base of
+    # the batch scans (fp_mont_mul launches), 0 -> 0.
     for n in (1000, 1 << 16):
         a = edge_words(n, 4, canonical=True)
-        check("fp_mont_mul", f"inv n={n}", fk.inv(a), ft.inv(a))
+        check("fp_pow_const+fp_mont_mul", f"inv n={n}", fk.inv(a), ft.inv(a))
+
+    # butterfly: tensor and by-value twiddle, outputs over the inputs.
+    for n in (1, 1000, 1 << 20):
+        ev, od, tw = edge_words(n, 15), edge_words(n, 16).roll(3, dims=1), edge_words(n, 17)
+        for case, w in (("tensor tw", tw), ("const tw", mont(123456789) if n > 1 else (1 << 128) - 1)):
+            want_hi, want_lo = ft.butterfly(ev, od, w)
+            hi, lo = fk.butterfly(ev, od, w)
+            check("fp_butterfly", f"n={n} {case} hi", hi, want_hi)
+            check("fp_butterfly", f"n={n} {case} lo", lo, want_lo)
+            e2, o2 = ev.clone(), od.clone()
+            fk.butterfly(e2, o2, w, out=(e2, o2))
+            check("fp_butterfly", f"n={n} {case} hi over even", e2, want_hi)
+            check("fp_butterfly", f"n={n} {case} lo over odd", o2, want_lo)
+    buf = big.clone()
+    fk.butterfly(buf[:, :half], buf[:, half:], mont(5), out=(buf[:, :half], buf[:, half:]))
+    want_hi, want_lo = ft.butterfly(big[:, :half].contiguous(), big[:, half:].contiguous(), mont(5))
+    check("fp_butterfly", "strided views in place", buf, torch.cat([want_hi, want_lo], dim=1))
 
     # NTT: forward and inverse, below / at / above the block size; each
     # kernel against its own plain version, and the whole transform against
@@ -251,6 +304,8 @@ def phase_kernels(results: dict) -> None:
         "fp_add": time_ms(lambda: fk.add(a, b)),
         "fp_sub": time_ms(lambda: fk.sub(a, b)),
         "fp_mont_mul": time_ms(lambda: fk.mont_mul(a, b)),
+        "fp_butterfly": time_ms(lambda: fk.butterfly(a, b, b)),
+        "fp_pow_const": time_ms(lambda: fk.pow_const(a, PRIME - 2)),
         "ntt_block": time_ms(lambda: ntt_kernels.ntt_block(a, tw, ntt_kernels.LOG_BLOCK_MAX)),
         "ntt_stage": time_ms(lambda: ntt_kernels.ntt_stage(b, tw, 20)),
         "blake2b_planes": time_ms(lambda: bk.blake2b_planes(msg, 64)),
@@ -327,11 +382,156 @@ def phase_mid() -> None:
          cuda_prove_s=proofs["cuda_s"], cpu_prove_s=proofs["cpu_s"])
 
 
+def air_setup(name: str, num_steps: int, device: str):
+    """(stark, byte trace, output) of a Fibonacci or MiMC AIR, default profile;
+    the trace is built on the host."""
+    from stark_anatomy_tpu_torch.iop.stark import Stark
+    from stark_anatomy_tpu_torch.models.fibonacci import FibonacciAir
+    from stark_anatomy_tpu_torch.models.mimc import MiMCAir
+
+    if name == "fibonacci":
+        air = FibonacciAir(num_steps=num_steps)
+        trace = air.trace_bytes()
+    else:
+        air = MiMCAir(num_steps=num_steps)
+        trace = air.trace_bytes(20260817)
+    stark = Stark(air, expansion_factor=4, num_colinearity_checks=16, device=device)
+    return stark, trace, int.from_bytes(trace[-1, 0].tobytes(), "little")
+
+
+def require_prove_path(launches: dict, what: str) -> None:
+    """Fail unless every kernel of the prove path was launched in `launches`
+    and the ops-surface-only ones were not."""
+    missing = [k for k in PROVE_PATH_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"{what} never launched: {missing}")
+    stray = [k for k in OPS_SURFACE_ONLY if launches[k] != 0]
+    if stray:
+        raise AssertionError(f"{what} launched ops-surface-only kernels: {stray}")
+    unknown = sorted(set(launches) - set(PROVE_PATH_KERNELS) - set(OPS_SURFACE_ONLY))
+    if unknown:
+        raise AssertionError(f"kernels neither on the prove path nor named ops-surface-only: {unknown}")
+
+
+def phase_airs(num_steps: int = AIR_STEPS) -> dict:
+    """Fibonacci (2 registers, degree 1, no constants) and MiMC (1 register,
+    degree 3, one periodic column) through the same Stark at full width."""
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+    from stark_anatomy_tpu_torch.ops.field import PRIME
+    from stark_anatomy_tpu_torch.utils import telemetry
+
+    out = {}
+    for name in ("fibonacci", "mimc"):
+        t0 = time.perf_counter()
+        stark, trace, output = air_setup(name, num_steps, "cuda")
+        trace_s = time.perf_counter() - t0
+        boundary = stark.air.boundary_constraints(output)
+
+        def prove() -> tuple:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            proof = stark.prove(trace, boundary, randomizer_seed=b"airs-v1")
+            torch.cuda.synchronize()
+            return proof, time.perf_counter() - t
+
+        nttmod.clear_twiddle_cache()  # cold = no twiddle table cached
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        cold, cold_s = prove()
+        launches = _build.launch_counts()
+        require_prove_path(launches, f"the {name} prove")
+        t0 = time.perf_counter()
+        accepted = stark.verify(cold, boundary)
+        verify_s = time.perf_counter() - t0
+        if not accepted:
+            raise AssertionError(f"the full-width {name} proof does not verify")
+        if stark.verify(tamper_leaf(cold), boundary):
+            raise AssertionError(f"a tampered {name} proof verified")
+        if stark.verify(cold, stark.air.boundary_constraints((output + 1) % PRIME)):
+            raise AssertionError(f"a {name} proof verified against a wrong output")
+        telemetry.reset()
+        warm, warm_s = prove()
+        if warm != cold:
+            raise AssertionError(f"two {name} proves with one seed differ")
+        split = {k: round(v["seconds"], 4) for k, v in telemetry.report().items()}
+        out[name] = dict(
+            rows=stark.trace_length, registers=stark.num_registers,
+            omicron_domain=stark.omicron_domain_length,
+            fri_domain=stark.fri_domain_length, host_trace_s=round(trace_s, 3),
+            cold_prove_s=round(cold_s, 3), warm_prove_s=round(warm_s, 3),
+            verify_s=round(verify_s, 3), verifies=True, tampered_rejected=True,
+            wrong_output_rejected=True, proof_bytes=len(cold), launches=launches,
+            phase_split_warm_s=split, peak_device_bytes=torch.cuda.max_memory_allocated(),
+        )
+        del stark, trace
+        # a small run of the same AIR (F = 2^12) on both devices, one seed
+        small = {}
+        for device in ("cuda", "cpu"):
+            stark, trace, output = air_setup(name, 900 if name == "fibonacci" else 180, device)
+            boundary = stark.air.boundary_constraints(output)
+            small[device] = stark.prove(trace, boundary, randomizer_seed=b"airs-small")
+            if not stark.verify(small[device], boundary):
+                raise AssertionError(f"small {name} proof from {device} does not verify")
+        if small["cuda"] != small["cpu"]:
+            raise AssertionError(f"cuda and cpu provers disagree on the small {name} run")
+        out[name]["small_fri_domain"] = stark.fri_domain_length
+        out[name]["small_cuda_cpu_identical"] = True
+    emit("airs", **out)
+    return out
+
+
+def phase_resume() -> None:
+    """Checkpoint/resume at chain 125 (F = 2^16), on the card."""
+    import glob
+    import tempfile
+
+    from stark_anatomy_tpu_torch.ops import _build
+
+    rp, air, stark = rescue_setup(125, 16, "cuda")
+    trace = rp.trace_bytes(7, 125)
+    boundary = air.boundary_constraints(int.from_bytes(trace[-1, 0].tobytes(), "little"))
+    plain = stark.prove(trace, boundary, randomizer_seed=b"resume-v1")
+    rounds = stark.fri.num_rounds
+
+    def prove(seed: bytes, directory: str) -> tuple:
+        _build.reset_launch_counts()
+        proof = stark.prove(trace, boundary, randomizer_seed=seed, checkpoint_dir=directory)
+        return proof, _build.launch_counts()
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_resume_") as d:
+        first, counts = prove(b"resume-v1", d)
+        if first != plain:
+            raise AssertionError("a prove with checkpoint_dir= differs from one without")
+        if counts["ntt_block"] == 0:
+            raise AssertionError("the first prove on an empty directory launched no NTT")
+        snaps = sorted(glob.glob(os.path.join(d, "stark-fri-r*.npz")))
+        if len(snaps) != rounds or not os.path.exists(os.path.join(d, "stark-pre-fri.npz")):
+            raise AssertionError(f"expected a pre-FRI snapshot and {rounds} FRI ones, found {snaps}")
+        second, counts = prove(b"resume-v1", d)
+        if second != plain or counts["ntt_block"] != 0:
+            raise AssertionError(f"the second prove did not resume to the same bytes: {counts}")
+        resumed_launches = dict(counts)
+        for r in (rounds - 1, rounds - 2):
+            for ext in ("npz", "json"):
+                os.remove(os.path.join(d, f"stark-fri-r{r}.{ext}"))
+        third, counts = prove(b"resume-v1", d)
+        if third != plain or counts["ntt_block"] != 0:
+            raise AssertionError(f"the mid-FRI resume did not give the same bytes: {counts}")
+        other, counts = prove(b"resume-v2", d)
+        if other == plain or counts["ntt_block"] == 0 or not stark.verify(other, boundary):
+            raise AssertionError("another seed on the same directory resumed a stale snapshot")
+    emit("resume", fri_domain=stark.fri_domain_length, fri_rounds=rounds, bytes=len(plain),
+         checkpointed_equals_plain=True, resumed_identical=True, mid_fri_resumed_identical=True,
+         other_seed_recomputed=True, launches_of_full_resume=resumed_launches)
+
+
 def phase_full(chain: int) -> dict:
     """The main path at its real size: Rescue-Prime chain, default profile,
     trace from the native generator; prove (cold, then warm) and verify."""
     from stark_anatomy_tpu_torch import native
     from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
     from stark_anatomy_tpu_torch.utils import telemetry
 
     rp, air, stark = rescue_setup(chain, 16, "cuda")
@@ -347,18 +547,17 @@ def phase_full(chain: int) -> dict:
         torch.cuda.synchronize()
         return proof, time.perf_counter() - t
 
+    nttmod.clear_twiddle_cache()  # cold = no twiddle table cached
     torch.cuda.reset_peak_memory_stats()
     _build.reset_launch_counts()
     cold, cold_s = prove()
+    launches = _build.launch_counts()
     t0 = time.perf_counter()
     accepted = stark.verify(cold, boundary)
     verify_s = time.perf_counter() - t0
-    launches = _build.launch_counts()
     if not accepted:
         raise AssertionError("the full-size proof does not verify")
-    missing = [k for k, v in launches.items() if v == 0]
-    if missing:
-        raise AssertionError(f"the main path never launched: {missing}")
+    require_prove_path(launches, "the main path")
     if stark.verify(tamper_leaf(cold), boundary):
         raise AssertionError("a tampered full-size proof verified")
 
@@ -368,7 +567,8 @@ def phase_full(chain: int) -> dict:
         raise AssertionError("two proves with one seed differ")
     split = {k: round(v["seconds"], 4) for k, v in telemetry.report().items()}
     info = dict(
-        chain=chain, rows=stark.trace_length, omicron_domain=stark.omicron_domain_length,
+        chain=chain, rows=stark.trace_length, registers=stark.num_registers,
+        omicron_domain=stark.omicron_domain_length,
         fri_domain=stark.fri_domain_length, native_trace=native.available(),
         trace_s=round(trace_s, 3), cold_prove_s=round(cold_s, 3), warm_prove_s=round(warm_s, 3),
         verify_s=round(verify_s, 3), verifies=True, tampered_rejected=True,
@@ -379,25 +579,39 @@ def phase_full(chain: int) -> dict:
     return info
 
 
-def phase_table(results: dict, full: dict) -> list:
-    """Each kernel at the main path's largest shape: held against its plain
-    version once more, then timed beside it; bounds from this run's sizes."""
+def table_cases(n: int, registers: int) -> tuple:
+    """The kernels' calls at the shapes a prove with FRI domain `n` and
+    `registers` trace columns gives them: name -> (kernel call, plain call,
+    units of work, bytes moved, launches per call[, the call to time when the
+    compared one carries a copy]), and name -> the shape in words."""
     from stark_anatomy_tpu_torch.ops import blake2b as b2
     from stark_anatomy_tpu_torch.ops import blake2b_kernels as bk
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
     from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
     from stark_anatomy_tpu_torch.ops import ntt_kernels
+    from stark_anatomy_tpu_torch.ops.field import PRIME
 
-    n = full["fri_domain"]
+    # the length at which inv's batch scans bottom out in the Fermat power:
+    # the one shape the prove path gives fp_pow_const
+    n_pow = n
+    while n_pow >= fk._BATCH_INV_MIN and n_pow % fk._BATCH_INV_GROUPS == 0:
+        n_pow //= fk._BATCH_INV_GROUPS
+    e_inv = PRIME - 2
+    pow_products = e_inv.bit_length() + bin(e_inv).count("1") - 2
     log_n = n.bit_length() - 1
     log_block = ntt_kernels.LOG_BLOCK_MAX
     late = list(range(log_block + 1, log_n + 1))
     a, b = edge_words(n, 11), edge_words(n, 12).roll(5, dims=1)
     x = edge_words(n, 13, canonical=True)
     tw = nttmod._twiddles(n, False, "cuda")
-    leaves = n // 2  # pair leaves of a 2-register tree: 64-byte messages
-    msg = torch.cat([a[:, :leaves], b[:, :leaves], a[:, leaves:], b[:, leaves:]], dim=0)
+    # the boundary-quotient tree's pair leaves: both halves of every register
+    leaves = n // 2
+    msg_len = 32 * registers
+    if registers > 2:
+        raise AssertionError("table_cases builds leaves of at most 2 registers")
+    msg = torch.cat([t[:, sl] for sl in (slice(0, leaves), slice(leaves, n))
+                     for t in (a, b)[:registers]], dim=0)
 
     def stages(fn, y):
         for s in late:
@@ -406,12 +620,20 @@ def phase_table(results: dict, full: dict) -> list:
 
     blocked = ntt_kernels.ntt_block(x, tw, log_block)
     scratch = blocked.clone()
-    # name -> (kernel call, plain call, units, bytes moved, launches per call
-    #          [, the call to time when the compared one carries a copy])
+    xp = x[:, :n_pow].contiguous()
+
+    def both(pair):
+        return torch.cat(list(pair), dim=1)
+
     cases = {
         "fp_add": (lambda: fk.add(a, b), lambda: ft.add(a, b), n, 48 * n, 1),
         "fp_sub": (lambda: fk.sub(a, b), lambda: ft.sub(a, b), n, 48 * n, 1),
         "fp_mont_mul": (lambda: fk.mont_mul(a, b), lambda: ft.mont_mul(a, b), n, 48 * n, 1),
+        # launched no time by a prove (ops surface only): held at n = F
+        "fp_butterfly": (lambda: both(fk.butterfly(a, b, x)), lambda: both(ft.butterfly(a, b, x)),
+                         n, 80 * n, 1, lambda: fk.butterfly(a, b, x)),
+        "fp_pow_const": (lambda: fk.pow_const(xp, e_inv), lambda: ft.pow_const(xp, e_inv),
+                         pow_products * n_pow, 32 * n_pow, 1),
         "ntt_block": (lambda: ntt_kernels.ntt_block(x, tw, log_block),
                       lambda: ntt_kernels.ntt_block_plain(x, tw, log_block),
                       log_block * (n // 2), 32 * n + 16 * (n // 2), 1),
@@ -421,31 +643,85 @@ def phase_table(results: dict, full: dict) -> list:
                       len(late) * (n // 2),
                       sum(32 * n + 16 * (1 << (s - 1)) for s in late), len(late),
                       lambda: stages(ntt_kernels.ntt_stage, scratch)),
-        "blake2b_planes": (lambda: bk.blake2b_planes(msg, 64),
-                           lambda: b2.blake2b_planes_plain(msg, 64),
-                           leaves, (64 + 64) * leaves, 1),
+        "blake2b_planes": (lambda: bk.blake2b_planes(msg, msg_len),
+                           lambda: b2.blake2b_planes_plain(msg, msg_len),
+                           leaves, (msg_len + 64) * leaves, 1),
     }
+    shapes = {name: f"n={n}" for name in cases}
+    shapes["fp_pow_const"] = f"n={n_pow} e=p-2"
+    shapes["ntt_stage"] = f"n={n} s={late[0]}..{late[-1]}"
+    shapes["blake2b_planes"] = f"{msg_len} B x {leaves}"
+    return cases, shapes
+
+
+def phase_table(results: dict, full: dict, airs: dict | None) -> list:
+    """Each kernel held against its plain version at the shapes of EVERY
+    driven path (the Rescue-Prime prove of the full phase and, where the airs
+    phase ran, the Fibonacci and MiMC proves: each path's own FRI domain,
+    Fermat-power length, late NTT stages and leaf width), then timed beside
+    the plain version at the full phase's shapes; bounds from those sizes.
+    `launches` is the full phase's count; the airs phase's stand beside it."""
+    from stark_anatomy_tpu_torch.ops import field_kernels as fk
+    from stark_anatomy_tpu_torch.ops.field import PRIME
+
+    paths = {"rescue_prime": (full["fri_domain"], full["registers"])}
+    for air, info in (airs or {}).items():
+        paths[air] = (info["fri_domain"], info["registers"])
+    main = paths["rescue_prime"]
+    compared: dict = {}  # (kernel, shape) -> max abs err
+
+    def compare(name: str, kernel, plain, shape: str) -> int:
+        if (name, shape) not in compared:
+            got, want = kernel(), plain()
+            torch.cuda.synchronize()
+            err = max_abs_err(got, want)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{name} differs from its plain version at {shape} (max abs err {err})")
+            compared[(name, shape)] = err
+        return compared[(name, shape)]
+
+    compared_at = {name: [] for name in OPS_PER_UNIT}
+    for key in sorted(set(paths.values()) - {main}) + [main]:
+        cases, shapes = table_cases(*key)
+        for name, case in cases.items():
+            compared_at[name].append({
+                "paths": [p for p, k in paths.items() if k == key], "shape": shapes[name],
+                "max_abs_err": compare(name, case[0], case[1], shapes[name])})
+        if key != main:
+            del cases
+            torch.cuda.empty_cache()
+
+    n = main[0]
     table = []
     for name, (kernel, plain, units, nbytes, per_call, *timed) in cases.items():
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        err = max_abs_err(got, want)
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} differs from its plain version at n={n} (max abs err {err})")
-        del got, want
         ms = time_ms(timed[0] if timed else kernel, reps=5) / per_call
         plain_ms = time_ms(plain, reps=1) / per_call
         bytes_ms = nbytes / DEVICE_MEMORY_BYTES_PER_S * 1e3 / per_call
         ops_ms = OPS_PER_UNIT[name] * units / INT32_OPS_PER_S * 1e3 / per_call
         source, replaces = KERNEL_SOURCES[name]
+        err = max(c["max_abs_err"] for c in compared_at[name])
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": full["launches"][name],
             "max_abs_err": max(err, results.get(name, {}).get("max_abs_err", 0)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
-            "library_ms": None, "shape": f"n={n}" if name != "blake2b_planes" else f"64 B x {leaves}",
+            "library_ms": None, "shape": shapes[name], "compared_at": compared_at[name],
         })
+        if airs:
+            table[-1].update({f"launches_{air}": info["launches"][name] for air, info in airs.items()})
+    # fp_pow_const is launch-bound at the prove path's shape: its time where
+    # the arithmetic shows, beside the operations bound there.
+    e_inv = PRIME - 2
+    pow_products = e_inv.bit_length() + bin(e_inv).count("1") - 2
+    x = edge_words(n, 13, canonical=True)
+    pow_row = next(row for row in table if row["name"] == "fp_pow_const")
+    for size in (1 << 20, n):
+        y = x[:, :size]
+        pow_row[f"ms_n_{size}"] = time_ms(lambda: fk.pow_const(y, e_inv), reps=3)
+        pow_row[f"bound_ms_n_{size}"] = max(
+            OPS_PER_UNIT["fp_pow_const"] * pow_products * size / INT32_OPS_PER_S,
+            32 * size / DEVICE_MEMORY_BYTES_PER_S) * 1e3
     return table
 
 
@@ -486,7 +762,7 @@ def phase_profile(chain: int, out_dir: str | None, warm_prove_s: float) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--phases", default="env,build,kernels,golden,mid,full")
+    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full")
     ap.add_argument("--verbose-build", action="store_true", help="print ptxas resource usage")
     ap.add_argument("--chain", type=int, default=32765, help="chain length of the full phase")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json / profile.json")
@@ -511,18 +787,22 @@ def main() -> int:
         phase_golden()
     if "mid" in phases:
         phase_mid()
+    airs = phase_airs() if "airs" in phases else None
+    if "resume" in phases:
+        phase_resume()
     if "full" not in phases:
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
     full = phase_full(args.chain)
-    table = phase_table(results, full)
+    table = phase_table(results, full, airs)
     if "profile" in phases:
         phase_profile(args.chain, args.out, full["warm_prove_s"])
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
-            json.dump({"gpu": gpu_name_and_limit(), "full": full, "kernels": table}, fh, indent=1)
+            json.dump({"gpu": gpu_name_and_limit(), "full": full, "airs": airs, "kernels": table},
+                      fh, indent=1)
     print(json.dumps({"kernels": table}), flush=True)
     print(gpu_name_and_limit(), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,12 +1,15 @@
-// Elementwise F_p kernels: fp_add, fp_sub, fp_mont_mul.
+// Elementwise F_p kernels: fp_add, fp_sub, fp_mont_mul, fp_butterfly and
+// fp_pow_const.
 //
-// Replaces: stark_anatomy_tpu/ops/field_pallas.py `_add_kernel`,
-// `_sub_kernel`, `_mont_mul_kernel` (through `_elementwise_call`), and with
-// a by-value constant operand `to_mont` / `from_mont` and every
-// "multiply by a broadcast constant" the prover does.
+// The three binary kernels replace stark_anatomy_tpu/ops/field_pallas.py
+// `_add_kernel`, `_sub_kernel`, `_mont_mul_kernel` (through
+// `_elementwise_call`), and with a by-value constant operand `to_mont` /
+// `from_mont` and every "multiply by a broadcast constant" the prover does.
+// fp_butterfly and fp_pow_const (each with its own note further down)
+// replace `butterfly` and `pow_const` of the same file.
 //
-// Bound on an H100: BYTES. Each element moves 3 x 16 B (two reads, one
-// write; 2 x 16 B with a constant operand) against ~3.35 TB/s, while the
+// Bound of the binary kernels on an H100: BYTES. Each element moves
+// 3 x 16 B (two reads, one write; 2 x 16 B with a constant operand) against ~3.35 TB/s, while the
 // Montgomery product is ~20 32x32 multiplies and ~50 adds per element: at
 // 2^24 elements that is 0.24 ms of memory traffic against roughly 0.05 ms of
 // integer issue. Design: one thread per element, plane-major so each of the
@@ -25,6 +28,15 @@
 namespace {
 
 enum Op { kAdd = 0, kSub = 1, kMul = 2 };
+
+fp::Fe make_fe(uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3) {
+  fp::Fe c;
+  c.w[0] = c0;
+  c.w[1] = c1;
+  c.w[2] = c2;
+  c.w[3] = c3;
+  return c;
+}
 
 template <int OP>
 __global__ void fp_binary_kernel(const uint32_t* a, long a_stride,
@@ -46,16 +58,70 @@ int launch(const uint32_t* a, long a_stride, const uint32_t* b, long b_stride,
            uint32_t c0, uint32_t c1, uint32_t c2, uint32_t c3, uint32_t* out,
            long out_stride, long n, cudaStream_t stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  fp::Fe c;
-  c.w[0] = c0;
-  c.w[1] = c1;
-  c.w[2] = c2;
-  c.w[3] = c3;
   const int threads = 256;
   const long blocks = (n + threads - 1) / threads;
   fp_binary_kernel<OP><<<(unsigned)blocks, threads, 0, stream>>>(
-      a, a_stride, b, b_stride, c, out, out_stride, n);
+      a, a_stride, b, b_stride, make_fe(c0, c1, c2, c3), out, out_stride, n);
   return (int)cudaGetLastError();
+}
+
+// fp_butterfly. Replaces field_pallas.py `_butterfly_kernel` (`butterfly`):
+// t = odd * tw; hi = even + t; lo = even - t, one thread per element.
+// Bound: BYTES, 80 per element (three reads, two writes; 64 with a constant
+// twiddle) against ~84 integer operations. The product stays in registers
+// between the multiply and the add/sub, which is all the fusion there is to
+// have. `hi` may be `even` and `lo` may be `odd` (a thread reads its element
+// of every operand before it writes). The NTT does not call this: ntt_stage
+// fuses the same arithmetic in place with a strided twiddle table.
+__global__ void fp_butterfly_kernel(const uint32_t* even, long even_stride,
+                                    const uint32_t* odd, long odd_stride,
+                                    const uint32_t* tw, long tw_stride, fp::Fe c,
+                                    uint32_t* hi, long hi_stride, uint32_t* lo,
+                                    long lo_stride, long n) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const fp::Fe e = fp::load(even, even_stride, i);
+  const fp::Fe o = fp::load(odd, odd_stride, i);
+  const fp::Fe w = tw ? fp::load(tw, tw_stride, i) : c;
+  const fp::Fe t = fp::mont_mul(o, w);
+  fp::store(hi, hi_stride, i, fp::add(e, t));
+  fp::store(lo, lo_stride, i, fp::sub(e, t));
+}
+
+// fp_pow_const. Replaces field_pallas.py `pow_const`, which scans the
+// product kernel over the exponent's bits: two launches and two full passes
+// over device memory per bit. Here the running power never leaves its
+// thread's registers: one read and one write per element whatever the
+// exponent, so the kernel is bound by OPERATIONS (bits + popcount - 2
+// Montgomery products per element; 250 for p - 2). The exponent comes by
+// value as four words and is scanned from bit `top - 1` down (`top` = its
+// bit length, found by the launcher): it is the same for every thread, so no
+// warp diverges. The input is canonicalised first (one conditional subtract)
+// so that every product has a canonical operand and the result is the
+// canonical representative, which is what the LSB-first plain version gives
+// for any 128-bit input. e = 0 gives R mod p (Montgomery one) for every
+// input, 0 included.
+__global__ void fp_pow_const_kernel(const uint32_t* a, long a_stride, fp::Fe e,
+                                    int top, uint32_t* out, long out_stride,
+                                    long n) {
+  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  fp::Fe r;
+  if (top == 0) {
+    // R mod p = 2^128 - p
+    r.w[0] = 0xFFFFFFFFu;
+    r.w[1] = 0xFFFFFFFFu;
+    r.w[2] = 0xFFFFFFFFu;
+    r.w[3] = 0u - fp::P3 - 1u;
+  } else {
+    const fp::Fe x = fp::cond_sub_p(fp::load(a, a_stride, i), 0u);
+    r = x;
+    for (int bit = top - 2; bit >= 0; --bit) {
+      r = fp::mont_mul(r, r);
+      if ((e.w[bit >> 5] >> (bit & 31)) & 1u) r = fp::mont_mul(r, x);
+    }
+  }
+  fp::store(out, out_stride, i, r);
 }
 
 }  // namespace
@@ -81,4 +147,44 @@ extern "C" int fp_mont_mul(const uint32_t* a, long a_stride, const uint32_t* b,
                            uint32_t c3, uint32_t* out, long out_stride, long n,
                            cudaStream_t stream) {
   return launch<kMul>(a, a_stride, b, b_stride, c0, c1, c2, c3, out, out_stride, n, stream);
+}
+
+// hi = even + odd * tw, lo = even - odd * tw. A null `tw` means the constant
+// (c0..c3). `hi` may alias `even`, `lo` may alias `odd`.
+extern "C" int fp_butterfly(const uint32_t* even, long even_stride,
+                            const uint32_t* odd, long odd_stride,
+                            const uint32_t* tw, long tw_stride, uint32_t c0,
+                            uint32_t c1, uint32_t c2, uint32_t c3, uint32_t* hi,
+                            long hi_stride, uint32_t* lo, long lo_stride, long n,
+                            cudaStream_t stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const long blocks = (n + threads - 1) / threads;
+  fp_butterfly_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      even, even_stride, odd, odd_stride, tw, tw_stride, make_fe(c0, c1, c2, c3),
+      hi, hi_stride, lo, lo_stride, n);
+  return (int)cudaGetLastError();
+}
+
+// out = a^e in Montgomery form, e = e0 + e1*2^32 + e2*2^64 + e3*2^96 by
+// value. `out` may alias `a`.
+extern "C" int fp_pow_const(const uint32_t* a, long a_stride, uint32_t e0,
+                            uint32_t e1, uint32_t e2, uint32_t e3, uint32_t* out,
+                            long out_stride, long n, cudaStream_t stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const fp::Fe e = make_fe(e0, e1, e2, e3);
+  int top = 0;  // bit length of e
+  for (int j = 3; j >= 0 && top == 0; --j) {
+    for (int b = 31; b >= 0; --b) {
+      if ((e.w[j] >> b) & 1u) {
+        top = 32 * j + b + 1;
+        break;
+      }
+    }
+  }
+  const int threads = 256;
+  const long blocks = (n + threads - 1) / threads;
+  fp_pow_const_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
+      a, a_stride, e, top, out, out_stride, n);
+  return (int)cudaGetLastError();
 }

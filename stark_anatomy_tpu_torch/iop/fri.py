@@ -14,7 +14,10 @@ Szepieniec's "Anatomy of a STARK"), same transcript:
   a launch per op is not worth it on a few thousand values, and the values,
   roots and transcript are identical either way;
 - the Fiat-Shamir transcript, index sampling, colinearity checks and path
-  verification are host-side exact integer work.
+  verification are host-side exact integer work;
+- with ``checkpoint_dir`` every committed round's standard-form codeword is
+  snapshotted (utils/checkpoint.py, stage ``fri-r{r}``), host-tail rounds
+  included, and a later call replays the completed rounds from disk.
 
 Transcript item layout (all JSON-safe, see utils/encoding.py):
   {"fri_root": b64}                            per round
@@ -57,8 +60,10 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     ints_to_words,
     mont,
     to_numpy,
+    to_tensor,
     words_to_ints,
 )
+from stark_anatomy_tpu_torch.utils import checkpoint
 from stark_anatomy_tpu_torch.utils.encoding import (
     digest_to_item,
     felt_to_item,
@@ -156,13 +161,26 @@ class Fri:
 
     # -- prover ------------------------------------------------------------
 
-    def prove(self, codeword_mont: torch.Tensor, proof_stream: ProofStream) -> List[int]:
+    def prove(
+        self,
+        codeword_mont: torch.Tensor,
+        proof_stream: ProofStream,
+        checkpoint_dir: str | None = None,
+        checkpoint_meta: dict | None = None,
+    ) -> List[int]:
         """Commit + query phases. Returns the top-level query indices.
 
         codeword_mont: (4, domain_length) Montgomery-form codeword to be
-        proven close to degree < domain_length / expansion_factor."""
+        proven close to degree < domain_length / expansion_factor.
+
+        checkpoint_dir / checkpoint_meta: when set, each committed round's
+        standard-form codeword is snapshotted; a rerun with the same meta
+        replays the completed rounds from disk. Trees are re-hashed from the
+        stored codewords (commitment is deterministic), so resume skips every
+        completed fold and produces a byte-identical transcript."""
         if codeword_mont.shape[-1] != self.domain_length:
             raise ValueError("codeword length != configured domain length")
+        checkpoint_meta = checkpoint_meta or {}
         rounds = self.num_rounds
         omega, offset = self.omega, self.offset
 
@@ -171,13 +189,50 @@ class Fri:
         codewords: List = []
         trees: List[MerkleTree] = []
         codeword = codeword_mont
-        for r in range(rounds):
+        resume_from = 0
+        if checkpoint_dir is not None:
+            # Replay the longest run of snapshotted rounds from round 0:
+            # re-commit each stored codeword, re-derive the fold challenges,
+            # and leave `codeword` as the fold of the last replayed round so
+            # the live loop continues at r = resume_from. Earlier folds are
+            # skipped: their results are the later snapshots.
+            snaps: List[np.ndarray] = []
+            for r in range(rounds):
+                snap = checkpoint.load(checkpoint_dir, f"fri-r{r}", checkpoint_meta)
+                if snap is None:
+                    break
+                snaps.append(snap["arrays"]["codeword"])
+            resume_from = len(snaps)
+            for r, words in enumerate(snaps):
+                if words.shape[-1] <= self.host_tail_n:
+                    standard = words
+                    tree = self._commit_host([int(v) for v in words_to_ints(words)])
+                else:
+                    standard = to_tensor(words, codeword_mont.device)
+                    tree = commit_columns([standard], pair=True)
+                codewords.append(standard)
+                trees.append(tree)
+                proof_stream.push({"fri_root": digest_to_item(tree.root)})
+                if r == rounds - 1:
+                    break
+                alpha = sample_field_element(proof_stream.prover_fiat_shamir())
+                if r == resume_from - 1:
+                    if not isinstance(standard, torch.Tensor):
+                        standard = to_tensor(words, codeword_mont.device)
+                    codeword = fold(fk.to_mont(standard), alpha, offset, omega)
+                omega = omega * omega % PRIME
+                offset = offset * offset % PRIME
+        for r in range(resume_from, rounds):
             if codeword.shape[-1] <= self.host_tail_n:
                 with _tphase("host-tail"):
-                    self._host_tail(codeword, r, rounds, omega, offset, codewords, trees, proof_stream)
+                    self._host_tail(codeword, r, rounds, omega, offset, codewords, trees,
+                                    proof_stream, checkpoint_dir, checkpoint_meta)
                 break
             standard = fk.from_mont(codeword)
             tree = commit_columns([standard], pair=True)
+            if checkpoint_dir is not None:
+                checkpoint.save(checkpoint_dir, f"fri-r{r}", [],
+                                {"codeword": to_numpy(standard)}, checkpoint_meta)
             codewords.append(standard)
             trees.append(tree)
             proof_stream.push({"fri_root": digest_to_item(tree.root)})
@@ -248,19 +303,29 @@ class Fri:
             proof_stream.push({"fri_multiproofs": multiproofs})
         return top_indices
 
+    @staticmethod
+    def _commit_host(values: List[int]) -> MerkleTree:
+        """Pair-leaf tree of a host codeword (hashlib)."""
+        h0 = len(values) // 2
+        tree = MerkleTree.commit_bytes(
+            [hash_felts([values[i], values[i + h0]]) for i in range(h0)]
+        )
+        tree.pair_leaves = True
+        return tree
+
     def _host_tail(self, codeword_mont, start_round, rounds, omega, offset,
-                   codewords, trees, proof_stream) -> None:
+                   codewords, trees, proof_stream, checkpoint_dir, checkpoint_meta) -> None:
         """Run rounds start_round..rounds-1 in exact host arithmetic: one
         device->host copy of the (small) current codeword, then native C
-        folds and hashlib commits; identical values and roots."""
+        folds and hashlib commits; identical values, roots and snapshots."""
         values = [int(v) for v in words_to_ints(to_numpy(fk.from_mont(codeword_mont)))]
         for r in range(start_round, rounds):
-            h0 = len(values) // 2
-            tree = MerkleTree.commit_bytes(
-                [hash_felts([values[i], values[i + h0]]) for i in range(h0)]
-            )
-            tree.pair_leaves = True
-            codewords.append(ints_to_words(values))
+            tree = self._commit_host(values)
+            words = ints_to_words(values)
+            if checkpoint_dir is not None:
+                checkpoint.save(checkpoint_dir, f"fri-r{r}", [], {"codeword": words},
+                                checkpoint_meta)
+            codewords.append(words)
             trees.append(tree)
             proof_stream.push({"fri_root": digest_to_item(tree.root)})
             if r == rounds - 1:

@@ -34,10 +34,22 @@ There is ONE prover path, eager, the same ops at every size. Field math is
 exact and every stored value is the canonical representative, so neither
 evaluation order nor batching can change a byte.
 
+The prover is AIR-generic: an AIR names its registers, cycle count,
+constraint degree and number, evaluates its transition constraints on the
+device and on the host, and describes its constant columns as
+``periodic_columns()`` (succinct on both sides), else as dense
+``constant_columns_bytes(O)`` or ``constant_columns(O)`` (each column
+extended like a trace column; none at all is valid).
+
+``prove(checkpoint_dir=...)`` snapshots the expensive intermediates before
+FRI and after every FRI round (utils/checkpoint.py) and resumes from them.
+
 The verifier replays the transcript in exact host arithmetic: FRI
 verification, pointwise reconstruction of trace values from the opened
 boundary-quotient leaves, constraint evaluation, and a combination-value
-equality check at every queried index. It touches no device.
+equality check at every queried index. It touches no device unless the AIR
+has dense constant columns, whose values at the queried rows are gathered
+from their codewords on ``device``.
 """
 
 from __future__ import annotations
@@ -78,10 +90,11 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     mont,
     pack_words,
     require_device,
+    to_numpy,
     to_tensor,
     words_to_ints,
 )
-from stark_anatomy_tpu_torch.utils import threefry
+from stark_anatomy_tpu_torch.utils import checkpoint, threefry
 from stark_anatomy_tpu_torch.utils.encoding import (
     digest_to_item,
     felt_to_item,
@@ -201,8 +214,6 @@ class Stark:
     def __post_init__(self):
         if self.num_randomizers is None:
             self.num_randomizers = 4 * self.num_colinearity_checks
-        if not hasattr(self.air, "periodic_columns"):
-            raise ValueError("the AIR must describe its constant columns as periodic_columns()")
         # The transition zerofier is (x^O - 1) divided by one (x - omicron^r)
         # factor PER padding row past the trace end; the factor's coefficients
         # are multiplied out on the host in O(padding^2).
@@ -424,13 +435,21 @@ class Stark:
         return nttmod.coset_evaluate(coeffs, self.fri_domain_length, self.offset)
 
     def _constants_codewords(self, device) -> List[torch.Tensor]:
-        """(4, F) Montgomery codewords of the AIR's periodic constant columns.
+        """(4, F) Montgomery codewords of the AIR's constant columns.
 
-        The codeword over the FRI coset repeats with period blk = period *
-        F/O, so ONE blk-length block is evaluated exactly on the host and
-        tiled on the device: no O(F log F) transforms."""
+        Periodic AIRs (periodic_columns): the codeword over the FRI coset
+        repeats with period blk = period * F/O, so ONE blk-length block is
+        evaluated exactly on the host and tiled on the device: no
+        O(F log F) transforms. Other AIRs give dense omicron-domain columns,
+        as canonical bytes or as ints, each extended like a trace column."""
         o = self.omicron_domain_length
         f = self.fri_domain_length
+        if not hasattr(self.air, "periodic_columns"):
+            if hasattr(self.air, "constant_columns_bytes"):
+                cols = [bytes_to_words(c) for c in self.air.constant_columns_bytes(o)]
+            else:
+                cols = [ints_to_words(c) for c in self.air.constant_columns(o)]
+            return [self.column_lde_words(c, device) for c in cols]
         period, coeffs = self._periodic_coeffs()
         blk = period * f // o  # block length on the FRI domain
         a = pow(self.offset, o // period, PRIME)  # coset offset^(O/period)
@@ -597,6 +616,7 @@ class Stark:
         boundary: List[Tuple[int, int, int]],
         proof_stream: ProofStream | None = None,
         randomizer_seed: bytes | None = None,
+        checkpoint_dir: str | None = None,
     ) -> bytes:
         """Prove that `trace` satisfies the AIR + boundary. Returns bytes.
 
@@ -608,7 +628,12 @@ class Stark:
         randomizer_seed: entropy for the zero-knowledge blinding: the
         pseudorandom trace padding rows AND the FRI randomizer polynomial.
         Default None draws fresh entropy (os.urandom) per call; pass a fixed
-        seed for reproducible proofs.
+        seed for reproducible proofs (required to resume across process
+        restarts: the seed is part of the checkpoint metadata).
+        checkpoint_dir: when set, the prover persists a snapshot before FRI
+        and one per FRI round (utils/checkpoint.py), and a later call with
+        the same trace, boundary and seed resumes from the latest of them to
+        the same bytes. A snapshot of other inputs is refused.
         """
         device = require_device(self.device)
         if randomizer_seed is None:
@@ -618,6 +643,13 @@ class Stark:
         t_len, w = trace.shape[:2]
         if t_len != self.trace_length or w != self.num_registers:
             raise ValueError("trace shape does not match the AIR")
+        ckpt_meta = None
+        if checkpoint_dir is not None:
+            ckpt_meta = self._checkpoint_meta(
+                boundary, self._trace_digest(trace, as_bytes), randomizer_seed)
+            loaded = checkpoint.load(checkpoint_dir, checkpoint.STAGE_PRE_FRI, ckpt_meta)
+            if loaded is not None:
+                return self._resume(loaded, device, checkpoint_dir, ckpt_meta)
         ps = proof_stream if proof_stream is not None else ProofStream()
 
         def randomizer(r: int, j: int) -> int:
@@ -652,9 +684,65 @@ class Stark:
             comb = self._combination(t_lde, bq_standard, zk_standard, bps, weights, device)
             t_lde.clear()
 
+        if checkpoint_dir is not None:
+            with _phase("prove.checkpoint", device):
+                arrays = {"comb": to_numpy(comb), "zk": to_numpy(zk_standard)}
+                for j, q in enumerate(bq_standard):
+                    arrays[f"bq{j}"] = to_numpy(q)
+                checkpoint.save(checkpoint_dir, checkpoint.STAGE_PRE_FRI, list(ps.items),
+                                arrays, ckpt_meta)
+        return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
+                                  device, checkpoint_dir, ckpt_meta)
+
+    def _checkpoint_meta(self, boundary, trace_digest: str, randomizer_seed: bytes) -> dict:
+        return {
+            "T": self.trace_length,
+            "w": self.num_registers,
+            "O": self.omicron_domain_length,
+            "F": self.fri_domain_length,
+            "checks": self.num_colinearity_checks,
+            "boundary": [[int(c), int(r), str(v)] for (c, r, v) in boundary],
+            # Bind the inputs, not just the shapes: resuming with another
+            # trace or randomizer seed must be refused, or the stale snapshot
+            # would silently produce a proof of the old trace.
+            "trace": trace_digest,
+            "seed": randomizer_seed.hex(),
+            "layout": checkpoint.LAYOUT,
+        }
+
+    @staticmethod
+    def _trace_digest(trace: np.ndarray, as_bytes: bool) -> str:
+        h = hashlib.blake2b(digest_size=32)
+        if as_bytes:
+            h.update(np.ascontiguousarray(trace).tobytes())
+        else:
+            for row in trace:
+                for v in row:
+                    h.update((int(v) % PRIME).to_bytes(16, "little"))
+        return h.hexdigest()
+
+    def _resume(self, loaded: dict, device, checkpoint_dir: str, ckpt_meta: dict) -> bytes:
+        """Continue from a pre-FRI snapshot: the transcript so far and the
+        combination come from disk, and the boundary-quotient and
+        zk-randomizer trees are re-committed from their saved standard-form
+        codewords (commitment is deterministic, so the roots already in the
+        transcript are theirs)."""
+        arrays = loaded["arrays"]
+        ps = ProofStream(loaded["items"])
+        with _phase("prove.resume-commit", device):
+            bq_standard = [to_tensor(arrays[f"bq{j}"], device) for j in range(self.num_registers)]
+            bq_tree = commit_columns(bq_standard, pair=True)
+            zk_standard = to_tensor(arrays["zk"], device)
+            zk_tree = commit_columns([zk_standard], pair=True)
+        comb = to_tensor(arrays["comb"], device)
+        return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
+                                  device, checkpoint_dir, ckpt_meta)
+
+    def _fri_and_open(self, ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
+                      device, checkpoint_dir, ckpt_meta) -> bytes:
         with _phase("prove.fri", device):
-            top_indices = self.fri.prove(comb, ps)
-        del comb
+            top_indices = self.fri.prove(
+                comb, ps, checkpoint_dir=checkpoint_dir, checkpoint_meta=ckpt_meta)
         with _phase("prove.open", device):
             self._open(ps, top_indices, bq_standard, bq_tree, zk_standard, zk_tree)
         return ps.serialize()
@@ -792,12 +880,25 @@ class Stark:
         e = self.expansion_shift
         w = self.num_registers
         bps = self._boundary_polys(boundary)
-        # Constants at the queried rows: the periodic interpolants, evaluated
-        # succinctly on the host (O(period) per point).
+        # Constants at the queried rows. Periodic AIRs evaluate the
+        # interpolants succinctly on the host (O(period) per point); AIRs
+        # with dense constant columns fall back to one gather from the
+        # columns' codewords on `device`.
+        query_rows = sorted({i for (i, _) in top_points})
         const_at: Dict[int, List[int]] = {}
-        for idx in sorted({i for (i, _) in top_points}):
-            x = self.offset * pow(self.omega, idx, PRIME) % PRIME
-            const_at[idx] = self.eval_periodic_at(x)
+        if hasattr(self.air, "periodic_columns"):
+            for idx in query_rows:
+                x = self.offset * pow(self.omega, idx, PRIME) % PRIME
+                const_at[idx] = self.eval_periodic_at(x)
+        else:
+            const_cw = self._constants_codewords(require_device(self.device))
+            rows = torch.tensor(query_rows, dtype=torch.long)
+            gathered = [
+                words_to_ints(to_numpy(fk.from_mont(c[:, rows.to(c.device)].contiguous())))
+                for c in const_cw
+            ]
+            for pos, idx in enumerate(query_rows):
+                const_at[idx] = [int(g[pos]) for g in gathered]
 
         excluded = [pow(self.omicron, r, PRIME) for r in range(self.trace_length - 1, o)]
         degrees = [self.transition_quotient_degree] * self.air.num_constraints + [

@@ -153,6 +153,12 @@ def mont_mul(a: torch.Tensor, b) -> torch.Tensor:
     return pack_words(_cond_sub_p(words, carry))
 
 
+def butterfly(even: torch.Tensor, odd: torch.Tensor, tw):
+    """(even + odd*tw, even - odd*tw), Montgomery form; tw a tensor or an int."""
+    t = mont_mul(odd, tw)
+    return add(even, t), sub(even, t)
+
+
 def to_mont(a: torch.Tensor) -> torch.Tensor:
     """Standard -> Montgomery form: a*R mod p = mont_mul(a, R^2)."""
     return mont_mul(a, R2_MOD_P)

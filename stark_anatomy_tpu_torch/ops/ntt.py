@@ -23,7 +23,8 @@ from stark_anatomy_tpu_torch.ops import ntt_kernels
 from stark_anatomy_tpu_torch.ops.field import PRIME, finv, primitive_root_of_unity
 from stark_anatomy_tpu_torch.ops.limbs import R_MOD_P, mont, require_device
 
-__all__ = ["ntt", "intt", "coset_lde", "coset_evaluate", "coset_interpolate", "powers"]
+__all__ = ["ntt", "intt", "coset_lde", "coset_evaluate", "coset_interpolate", "powers", "poly_mul",
+           "clear_twiddle_cache"]
 
 _ntt_core = ntt_kernels.transform_plain
 
@@ -63,6 +64,11 @@ def _twiddles(n: int, inverse: bool, device="cuda") -> torch.Tensor:
             w = finv(w)
         _TWIDDLE_CACHE[key] = powers(w, max(n // 2, 1), device)
     return _TWIDDLE_CACHE[key]
+
+
+def clear_twiddle_cache() -> None:
+    """Drop every cached twiddle table (n/2 elements each, on its device)."""
+    _TWIDDLE_CACHE.clear()
 
 
 def _size(x: torch.Tensor) -> int:
@@ -116,3 +122,19 @@ def coset_lde(coeffs_mont: torch.Tensor, blowup: int, offset: int) -> torch.Tens
     if blowup < 1 or blowup & (blowup - 1):
         raise ValueError("blowup must be a power of two")
     return coset_evaluate(coeffs_mont, coeffs_mont.shape[-1] * blowup, offset)
+
+
+def poly_mul(a_mont: torch.Tensor, b_mont: torch.Tensor) -> torch.Tensor:
+    """Dense polynomial product via NTT. Output length = len(a)+len(b)-1."""
+    la, lb = a_mont.shape[-1], b_mont.shape[-1]
+    out_len = la + lb - 1
+    n = 1
+    while n < out_len:
+        n *= 2
+    pa = torch.zeros((4, n), dtype=torch.int32, device=a_mont.device)
+    pb = torch.zeros_like(pa)
+    pa[:, :la] = a_mont
+    pb[:, :lb] = b_mont
+    prod = ntt(pa)
+    fk.mont_mul(prod, ntt(pb), out=prod)
+    return intt(prod)[:, :out_len].contiguous()

@@ -7,7 +7,9 @@ tensor (ops/limbs.py). Digests are ``(n, 16)`` uint32 rows there and
 ``(16, n)`` int32 planes here. The functions below take and return numpy
 only, so a test can hand one numpy input to both packages. There are no
 learned weights to carry: round constants and twiddles are derived on both
-sides from the same integers.
+sides from the same integers. The only state either package writes to disk
+is a prover snapshot (utils/checkpoint.py); ``snapshot_from_reference``
+re-slices one written by the JAX package into this port's layout.
 """
 
 from __future__ import annotations
@@ -18,12 +20,24 @@ import torch
 from stark_anatomy_tpu_torch.ops.limbs import to_numpy, to_tensor
 
 
-def from_reference_limbs(limbs: np.ndarray, device="cpu") -> torch.Tensor:
-    """(8, n) uint32 16-bit digits -> (4, n) int32 word-plane tensor."""
+def _limbs_to_words(limbs: np.ndarray) -> np.ndarray:
     limbs = np.asarray(limbs, dtype=np.uint32)
     if limbs.ndim != 2 or limbs.shape[0] != 8:
         raise ValueError("expected (8, n) digit limbs")
-    return to_tensor(limbs[0::2] | (limbs[1::2] << np.uint32(16)), device)
+    return limbs[0::2] | (limbs[1::2] << np.uint32(16))
+
+
+def from_reference_limbs(limbs: np.ndarray, device="cpu") -> torch.Tensor:
+    """(8, n) uint32 16-bit digits -> (4, n) int32 word-plane tensor."""
+    return to_tensor(_limbs_to_words(limbs), device)
+
+
+def snapshot_from_reference(arrays: dict) -> dict:
+    """The arrays of a snapshot the JAX package wrote (``comb``, ``bq{j}``,
+    ``zk`` of stage "pre-fri", ``codeword`` of a stage "fri-r{r}"; each
+    (8, n) uint32 digits) -> the same names as (4, n) uint32 word planes,
+    ready for this port's ``utils.checkpoint.save``."""
+    return {name: _limbs_to_words(limbs) for name, limbs in arrays.items()}
 
 
 def to_reference_limbs(t: torch.Tensor) -> np.ndarray:

@@ -36,3 +36,11 @@ def test_golden_proof_bytes_through_the_kernels(card):
 
 def test_cuda_and_cpu_provers_agree_with_device_fri_rounds(card):
     chip_smoke.phase_mid()
+
+
+def test_fibonacci_and_mimc_prove_through_the_kernels_and_agree_with_the_cpu(card):
+    chip_smoke.phase_airs(4000)
+
+
+def test_checkpoint_resume_on_the_card_gives_identical_bytes(card):
+    chip_smoke.phase_resume()

@@ -129,11 +129,73 @@ def test_mul_eq_select_zeros_full_match_field_jnp(canon):
         _same(ft.full((9,), value, "cpu", mont=m), fj.full((9,), value, mont=m))
 
 
-@pytest.mark.parametrize("exponent", [0, 1, 3, 0b1011011])
+@pytest.mark.parametrize("exponent", [0, 1, 3, 0b1011011, PRIME - 2, (1 << 128) + 5])
 def test_pow_const_matches_field_jnp(canon, exponent):
     (a, ja), _ = canon
-    _same(ft.pow_const(a, exponent), fj.pow_const(ja, exponent))
-    _same(ft.pow_const(a, exponent, a_is_mont=False), fj.pow_const(ja, exponent, a_is_mont=False))
+    n = N if exponent < (1 << 64) else 64  # ~250 products per element: keep the long ones short
+    a, ja = a[:, :n].contiguous(), ja[:, :n]
+    want = fj.pow_const(ja, exponent)
+    _same(ft.pow_const(a, exponent), want)
+    _same(fk.pow_const(a, exponent), want)
+    out = a.clone()
+    assert fk.pow_const(out, exponent, out=out) is out
+    _same(out, want)
+    if exponent < (1 << 64):
+        _same(ft.pow_const(a, exponent, a_is_mont=False), fj.pow_const(ja, exponent, a_is_mont=False))
+
+
+def test_pow_const_edges_zero_exponent_noncanonical_input_and_negative(raw):
+    (a, ja), _ = raw  # any 128-bit input, p, p + 1 and 2^128 - 1 among them
+    a, ja = a[:, :32].contiguous(), ja[:, :32]
+    one = ft.const_column(R_MOD_P, a).expand_as(a)
+    assert torch.equal(fk.pow_const(a, 0), one)  # also where a is 0
+    for exponent in (1, 2, 12345):
+        got = fk.pow_const(a, exponent)
+        _same(got, fj.pow_const(ja, exponent))
+        assert all(int(v) < PRIME for v in words_to_ints(got.numpy()))  # canonical out
+    with pytest.raises(ValueError):
+        fk.pow_const(a, -1)
+    with pytest.raises(ValueError):
+        ft.pow_const(a, -1)
+    with pytest.raises(TypeError):
+        fk.pow_const(a.to(torch.int64), 3)
+    with pytest.raises(ValueError):
+        fk.pow_const(a, 3, out=torch.zeros((4, 8), dtype=torch.int32))
+
+
+def test_butterfly_matches_pallas_interpret(canon):
+    (a, ja), (b, jb) = canon
+    tw, jtw = _both(_words(8, N, True))
+    hi, lo = fk.butterfly(a, b, tw)
+    want_hi, want_lo = fp.butterfly(ja, jb, jtw, interpret=True)
+    _same(hi, want_hi)
+    _same(lo, want_lo)
+    plain_hi, plain_lo = ft.butterfly(a, b, tw)
+    assert torch.equal(hi, plain_hi) and torch.equal(lo, plain_lo)
+
+
+def test_butterfly_ragged_constant_twiddle_and_aliased_outputs():
+    n = 777
+    (a, ja), (b, jb), (tw, jtw) = (_both(_words(s, n, False)) for s in (9, 10, 11))
+    t = fj.mont_mul(jb, jtw)
+    hi, lo = fk.butterfly(a, b, tw)
+    _same(hi, fj.add(ja, t))
+    _same(lo, fj.sub(ja, t))
+    # a constant twiddle, by value
+    c = mont(987654321)
+    col = ft.const_column(c, a).expand_as(a).contiguous()
+    chi, clo = fk.butterfly(a, b, c)
+    want = ft.butterfly(a, b, col)
+    assert torch.equal(chi, want[0]) and torch.equal(clo, want[1])
+    # hi over even, lo over odd, as views of one buffer
+    buf = torch.cat([a, b], dim=1)
+    got = fk.butterfly(buf[:, :n], buf[:, n:], tw, out=(buf[:, :n], buf[:, n:]))
+    assert got[0].data_ptr() == buf.data_ptr()
+    assert torch.equal(buf[:, :n], hi) and torch.equal(buf[:, n:], lo)
+    with pytest.raises(ValueError):
+        fk.butterfly(a, b[:, :-1], tw)
+    with pytest.raises(TypeError):
+        fk.butterfly(a, b.to(torch.int64), tw)
 
 
 def test_mont_mul_agrees_with_python_ints(canon):

@@ -56,7 +56,8 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.SOURCES + _build.HEADERS:
         assert os.path.exists(os.path.join(_build.CSRC, name)), name
     assert set(_build.SIGNATURES) == set(_build.LAUNCHES) == {
-        "fp_add", "fp_sub", "fp_mont_mul", "ntt_block", "ntt_stage", "blake2b_planes"}
+        "fp_add", "fp_sub", "fp_mont_mul", "fp_butterfly", "fp_pow_const",
+        "ntt_block", "ntt_stage", "blake2b_planes"}
 
 
 def test_default_device_raises_without_a_card_instead_of_running_on_the_cpu():
@@ -81,6 +82,10 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(fk.add(a, b), ft.add(a, b))
     assert torch.equal(fk.sub(a, b), ft.sub(a, b))
     assert torch.equal(fk.mont_mul(a, b), ft.mont_mul(a, b))
+    assert torch.equal(fk.pow_const(a, 5), ft.pow_const(a, 5))
+    hi, lo = fk.butterfly(a, b, 7)
+    assert torch.equal(hi, ft.butterfly(a, b, 7)[0]) and torch.equal(lo, ft.butterfly(a, b, 7)[1])
+    assert torch.equal(fk.inv(a), ft.inv(a))
     tw = nttmod._twiddles(64, False, "cpu")
     assert torch.equal(ntt_kernels.transform(a, tw), ntt_kernels.transform_plain(a, tw))
     msg = torch.cat([a, b])

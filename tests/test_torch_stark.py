@@ -9,6 +9,8 @@ import pytest
 from stark_anatomy_tpu.iop import stark as ref_stark
 from stark_anatomy_tpu.models import rescue_prime as ref_rp
 from stark_anatomy_tpu_torch.iop.stark import PROFILES, Stark, default_config
+from stark_anatomy_tpu_torch.models.fibonacci import FibonacciAir
+from stark_anatomy_tpu_torch.models.mimc import MiMCAir
 from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, RescuePrimeAir
 from stark_anatomy_tpu_torch.ops.field import PRIME
 from stark_anatomy_tpu_torch.reference import stark_from_reference
@@ -169,5 +171,35 @@ def test_shape_mismatch_and_non_periodic_air_raise(setup):
     rp, stark, boundary = setup
     with pytest.raises(ValueError):
         stark.prove(rp.trace(INPUT)[:-1], boundary, randomizer_seed=SEED)
-    with pytest.raises(ValueError):
+
+    # A non-periodic AIR must give its constant columns densely; one that has
+    # neither periodic_columns() nor constant_columns*() raises.
+    class NoColumns:
+        def __init__(self, air):
+            self._air = air
+
+        def __getattr__(self, name):
+            if name in ("periodic_columns", "constant_columns", "constant_columns_bytes"):
+                raise AttributeError(name)
+            return getattr(self._air, name)
+
+    with pytest.raises(AttributeError, match="constant_columns"):
+        Stark(NoColumns(MiMCAir(num_steps=60)), num_colinearity_checks=2, device="cpu") \
+            ._constants_codewords("cpu")
+
+    class BadPeriod(MiMCAir):
+        def periodic_columns(self):
+            return 3, [[1, 2, 3]]
+
+    with pytest.raises(ValueError, match="period"):
+        Stark(BadPeriod(num_steps=60), num_colinearity_checks=2, device="cpu")._periodic_coeffs()
+    with pytest.raises(AttributeError):
         Stark(object(), device="cpu")
+
+
+def test_non_periodic_air_is_accepted():
+    # An AIR without periodic_columns() is accepted: its dense or absent
+    # constant columns are extended like trace columns (proved end to end in
+    # tests/test_torch_airs.py).
+    assert Stark(FibonacciAir(num_steps=40), num_colinearity_checks=2, device="cpu") \
+        ._constants_codewords("cpu") == []
