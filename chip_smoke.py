@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py                 # every phase, needs one card
     python3 chip_smoke.py --phases env,build,kernels --verbose-build
+    python3 chip_smoke.py --phases env,build,kernels,mesh
 
 Drives stark_anatomy_tpu_torch only (no JAX anywhere). Phases, each
 printing one JSON line when it finishes; any failure raises and the process
@@ -26,6 +27,15 @@ exits non-zero:
   full     chain 32765, F = 2^24 (the main path at its real size): launch
            counts reset, cold prove, counts read; warm prove; verify; phase
            split; peak device memory
+  mesh     the mesh path on the one card (8 shards in one process, so an
+           exchange is a permuted copy on the device): the sharded NTT in its
+           three layouts for 2, 8 and 128 shards, the sharded LDE and the
+           sharded pair-leaf commit against their single-device versions, and
+           chain 32765 through Stark(mesh=make_mesh(8)): the bytes of the
+           full phase's proof, cold and warm beside a single-device prove;
+           a small run on cuda and on cpu, bytes identical
+  dist     the same sharded NTT through a one-process torch.distributed
+           group (nccl): the process-group branch of the exchange
   profile  (only when named in --phases) one warm full-size prove under
            torch.profiler: device time by kernel name, device busy share
 
@@ -67,13 +77,14 @@ INT32_OPS_PER_S = 33.5e12
 #: mont_mul: 4 rounds of (4 wide multiply-adds of a*b[i], 1 for m*p's top
 #: word, ~5 carry adds) = 40, plus the conditional subtract's 12, rounded
 #: up to 60 for the negations and carries into the fifth word. A butterfly
-#: is one product, one add, one sub = 84. fp_pow_const's unit is one
+#: is one product, one add, one sub = 84 (ntt_grouped: log2 g stages of n/2
+#: butterflies). fp_pow_const's unit is one
 #: Montgomery product (bits + popcount - 2 of them per element). Blake2b: a G is 6 64-bit adds,
 #: 4 xors, and rotates by 24, 16 and 63 (the one by 32 is free) at 2
 #: operations each = 26; 96 G per block = 2496.
 OPS_PER_UNIT = {
     "fp_add": 12, "fp_sub": 12, "fp_mont_mul": 60, "fp_butterfly": 84, "fp_pow_const": 60,
-    "ntt_block": 84, "ntt_stage": 84, "blake2b_planes": 2496,
+    "ntt_block": 84, "ntt_stage": 84, "ntt_grouped": 84, "blake2b_planes": 2496,
 }
 KERNEL_SOURCES = {
     "fp_add": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:140"),
@@ -83,6 +94,7 @@ KERNEL_SOURCES = {
     "fp_pow_const": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:266"),
     "ntt_block": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:95"),
     "ntt_stage": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:128"),
+    "ntt_grouped": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:242"),
     "blake2b_planes": ("stark_anatomy_tpu_torch/csrc/blake2b.cu", "stark_anatomy_tpu/ops/blake2b_pallas.py:68"),
 }
 #: the kernels every Stark.prove launches; fp_butterfly is on the ops surface
@@ -91,6 +103,12 @@ KERNEL_SOURCES = {
 PROVE_PATH_KERNELS = ("fp_add", "fp_sub", "fp_mont_mul", "fp_pow_const", "ntt_block", "ntt_stage",
                       "blake2b_planes")
 OPS_SURFACE_ONLY = ("fp_butterfly",)
+#: launched by a prove on a mesh only (the column transforms of the four-step
+#: NTT): no time by a single-device prove, at least once by a mesh prove
+MESH_ONLY = ("ntt_grouped",)
+#: shards of the mesh the mesh phase proves on, = the group size of ntt_grouped
+#: in the kernel table
+MESH_SHARDS = 8
 #: steps of the Fibonacci and MiMC traces of the airs phase: 1 048 481 rows,
 #: the omicron domain 2^20 that chain 32765 gives Rescue-Prime
 AIR_STEPS = 1048480
@@ -281,6 +299,23 @@ def phase_kernels(results: dict) -> None:
             check("ntt_block+ntt_stage", case + " whole", ntt_kernels.transform(x, tw, scale),
                   ntt_kernels.transform_plain(x, tw, scale))
 
+    # grouped NTT: n/g independent size-g transforms, natural order in and
+    # out; the edge group sizes 2 and 128, ragged n (one group, three, a
+    # block and a bit), any 128-bit input; forward and with the inverse's scale.
+    for g in (2, 4, 8, 16, 128):
+        for n in (g, 3 * g, 1024 + 5 * g, 1 << 20):
+            x = edge_words(n, 18 + g)
+            for inverse in (False, True):
+                tw = nttmod._twiddles(g, inverse, "cuda")
+                scale = mont(finv(g)) if inverse else None
+                check("ntt_grouped", f"g={g} n={n} inverse={inverse}",
+                      ntt_kernels.ntt_grouped(x, tw, g, scale),
+                      ntt_kernels.ntt_grouped_plain(x, tw, g, scale))
+    x = edge_words(1 << 12, 19, canonical=True)
+    check("ntt_grouped", "against ntt of every group",
+          nttmod.grouped_ntt(x, 128),
+          torch.cat([nttmod.ntt(x[:, i : i + 128].contiguous()) for i in range(0, 1 << 12, 128)], dim=1))
+
     # Blake2b: leaf and node lengths, ragged and large n; hashlib on a sample.
     for msg_len in (32, 64, 128, 192):
         for n in (1000, 1 << 20):
@@ -299,6 +334,7 @@ def phase_kernels(results: dict) -> None:
     n = 1 << 20
     a, b = edge_words(n, 6), edge_words(n, 7)
     tw = nttmod._twiddles(n, False, "cuda")
+    tw_g = nttmod._twiddles(MESH_SHARDS, False, "cuda")
     msg = torch.cat([a, b, a, b])
     ms = {
         "fp_add": time_ms(lambda: fk.add(a, b)),
@@ -308,6 +344,7 @@ def phase_kernels(results: dict) -> None:
         "fp_pow_const": time_ms(lambda: fk.pow_const(a, PRIME - 2)),
         "ntt_block": time_ms(lambda: ntt_kernels.ntt_block(a, tw, ntt_kernels.LOG_BLOCK_MAX)),
         "ntt_stage": time_ms(lambda: ntt_kernels.ntt_stage(b, tw, 20)),
+        "ntt_grouped": time_ms(lambda: ntt_kernels.ntt_grouped(a, tw_g, MESH_SHARDS)),
         "blake2b_planes": time_ms(lambda: bk.blake2b_planes(msg, 64)),
     }
     counts = _build.launch_counts()
@@ -399,16 +436,18 @@ def air_setup(name: str, num_steps: int, device: str):
     return stark, trace, int.from_bytes(trace[-1, 0].tobytes(), "little")
 
 
-def require_prove_path(launches: dict, what: str) -> None:
+def require_prove_path(launches: dict, what: str, mesh: bool = False) -> None:
     """Fail unless every kernel of the prove path was launched in `launches`
-    and the ops-surface-only ones were not."""
-    missing = [k for k in PROVE_PATH_KERNELS if launches[k] == 0]
+    and the ops-surface-only ones were not; the mesh-only ones must have been
+    launched by a prove on a mesh and by no other."""
+    path = PROVE_PATH_KERNELS + (MESH_ONLY if mesh else ())
+    missing = [k for k in path if launches[k] == 0]
     if missing:
         raise AssertionError(f"{what} never launched: {missing}")
-    stray = [k for k in OPS_SURFACE_ONLY if launches[k] != 0]
+    stray = [k for k in OPS_SURFACE_ONLY + (() if mesh else MESH_ONLY) if launches[k] != 0]
     if stray:
-        raise AssertionError(f"{what} launched ops-surface-only kernels: {stray}")
-    unknown = sorted(set(launches) - set(PROVE_PATH_KERNELS) - set(OPS_SURFACE_ONLY))
+        raise AssertionError(f"{what} launched kernels that are not on its path: {stray}")
+    unknown = sorted(set(launches) - set(PROVE_PATH_KERNELS) - set(OPS_SURFACE_ONLY) - set(MESH_ONLY))
     if unknown:
         raise AssertionError(f"kernels neither on the prove path nor named ops-surface-only: {unknown}")
 
@@ -526,9 +565,10 @@ def phase_resume() -> None:
          other_seed_recomputed=True, launches_of_full_resume=resumed_launches)
 
 
-def phase_full(chain: int) -> dict:
+def phase_full(chain: int) -> tuple:
     """The main path at its real size: Rescue-Prime chain, default profile,
-    trace from the native generator; prove (cold, then warm) and verify."""
+    trace from the native generator; prove (cold, then warm) and verify.
+    Returns what it emitted and (trace, boundary, proof) for the mesh phase."""
     from stark_anatomy_tpu_torch import native
     from stark_anatomy_tpu_torch.ops import _build
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
@@ -576,7 +616,174 @@ def phase_full(chain: int) -> dict:
         peak_device_bytes=torch.cuda.max_memory_allocated(),
     )
     emit("full", **info)
+    return info, (trace, boundary, cold)
+
+
+def check_sharded_ntt(mesh, x: torch.Tensor, what: str) -> int:
+    """sharded_ntt on `mesh` in its three layout pairs, both directions,
+    against ntt / intt (tolerance 0), with the exchanges of each counted
+    (3 / 2 / 2). Returns the number of transforms compared."""
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+    from stark_anatomy_tpu_torch.ops.limbs import to_numpy, to_tensor
+    from stark_anatomy_tpu_torch.parallel import CYCLIC, NATURAL, sharded_ntt
+    from stark_anatomy_tpu_torch.reference import cyclic_to_natural, natural_to_cyclic
+
+    s = mesh.shards
+    x_cyclic = to_tensor(natural_to_cyclic(to_numpy(x), s), "cuda")
+    done = 0
+    for inverse in (False, True):
+        want = nttmod.intt(x) if inverse else nttmod.ntt(x)
+        for lin, lout, exchanges in ((NATURAL, NATURAL, 3), (NATURAL, CYCLIC, 2), (CYCLIC, NATURAL, 2)):
+            given = x_cyclic if lin == CYCLIC else x
+            before = mesh.exchanges
+            got = sharded_ntt(given, mesh, inverse, layout_in=lin, layout_out=lout)
+            torch.cuda.synchronize()
+            if mesh.exchanges - before != exchanges:
+                raise AssertionError(f"{what} S={s} {lin}->{lout}: {mesh.exchanges - before} "
+                                     f"exchanges, expected {exchanges}")
+            if lout == CYCLIC:
+                got = to_tensor(cyclic_to_natural(to_numpy(got), s), "cuda")
+            if not torch.equal(got, want):
+                raise AssertionError(f"{what} S={s} {lin}->{lout} inverse={inverse} differs from "
+                                     "the single-device transform")
+            done += 1
+    return done
+
+
+def phase_mesh(chain: int = 32765, full_run: tuple | None = None, log_n: int = 20,
+               shard_counts: tuple = (2, 8, 128)) -> dict:
+    """The mesh path on the one card: MESH_SHARDS shards in one process."""
+    from stark_anatomy_tpu_torch.iop.merkle import commit_columns
+    from stark_anatomy_tpu_torch.iop.stark import Stark
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+    from stark_anatomy_tpu_torch.ops.field import GENERATOR
+    from stark_anatomy_tpu_torch.parallel import commit_sharded, make_mesh, sharded_lde
+    from stark_anatomy_tpu_torch.utils import telemetry
+
+    n = 1 << log_n
+    # (a) the sharded NTT against ntt / intt
+    x = edge_words(n, 21, canonical=True)
+    transforms = sum(check_sharded_ntt(make_mesh(s), x, "sharded_ntt") for s in shard_counts)
+
+    # (b) the sharded LDE of one column, n -> 16 n, against intt + coset_evaluate
+    mesh = make_mesh(MESH_SHARDS)
+    lde_len = 16 * n
+    got = sharded_lde(x, lde_len, GENERATOR, mesh)
+    want = nttmod.coset_evaluate(nttmod.intt(x), lde_len, GENERATOR)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError("sharded_lde differs from intt + coset_evaluate")
+    del got, want
+    lde_ms = time_ms(lambda: sharded_lde(x, lde_len, GENERATOR, mesh), reps=3)
+    single_lde_ms = time_ms(lambda: nttmod.coset_evaluate(nttmod.intt(x), lde_len, GENERATOR), reps=3)
+
+    # (c) the sharded pair-leaf commit of two columns of the LDE's length
+    cols = [edge_words(lde_len, 22, canonical=True), edge_words(lde_len, 23, canonical=True)]
+    tree, ref = commit_sharded(cols, mesh, pair=True), commit_columns(cols, pair=True)
+    opened = (0, lde_len // 4 + 1, lde_len // 2 - 1)
+    if tree.root != ref.root or any(tree.open(i) != ref.open(i) for i in opened) \
+            or tree.open_multi(opened) != ref.open_multi(opened):
+        raise AssertionError("commit_sharded differs from commit_columns")
+    commit_ms = time_ms(lambda: commit_sharded(cols, mesh, pair=True), reps=3)
+    single_commit_ms = time_ms(lambda: commit_columns(cols, pair=True), reps=3)
+    del cols, tree, ref, x
+    torch.cuda.empty_cache()
+
+    # (d) the path at full width: Stark on the mesh, the full phase's inputs
+    rp, air, single = rescue_setup(chain, 16, "cuda")
+    if full_run is None:
+        trace = rp.trace_bytes(11, chain)
+        boundary = air.boundary_constraints(int.from_bytes(trace[-1, 0].tobytes(), "little"))
+        want_proof = single.prove(trace, boundary, randomizer_seed=b"full-v1")
+    else:
+        trace, boundary, want_proof = full_run
+    sharded = Stark(air, expansion_factor=4, num_colinearity_checks=16, mesh=mesh)
+
+    def prove(stark) -> tuple:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        proof = stark.prove(trace, boundary, randomizer_seed=b"full-v1")
+        torch.cuda.synchronize()
+        return proof, time.perf_counter() - t
+
+    nttmod.clear_twiddle_cache()  # cold = no twiddle or cross table cached
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launch_counts()
+    exchanges = mesh.exchanges
+    cold, cold_s = prove(sharded)
+    launches = _build.launch_counts()
+    exchanges = mesh.exchanges - exchanges
+    peak = torch.cuda.max_memory_allocated()
+    require_prove_path(launches, "the mesh prove", mesh=True)
+    if launches["ntt_grouped"] < 2 * single.num_registers:
+        raise AssertionError(f"the mesh prove launched ntt_grouped {launches['ntt_grouped']} times")
+    if cold != want_proof:
+        raise AssertionError("the mesh prove's bytes differ from the single-device proof")
+    if not sharded.verify(cold, boundary):
+        raise AssertionError("the mesh proof does not verify")
+    # warm, in turns with the single-device prover: single, mesh, mesh, single
+    _, _ = prove(single)
+    _build.reset_launch_counts()
+    _, single_a = prove(single)
+    require_prove_path(_build.launch_counts(), "a single-device prove after the mesh prove")
+    telemetry.reset()
+    warm, warm_a = prove(sharded)
+    split = {k: round(v["seconds"], 4) for k, v in telemetry.report().items()}
+    _, warm_b = prove(sharded)
+    _, single_b = prove(single)
+    if warm != cold:
+        raise AssertionError("two mesh proves with one seed differ")
+
+    # (e) a small run on the mesh, on the card and on the CPU
+    small = {}
+    for device in ("cuda", "cpu"):
+        rp1, air1, _ = rescue_setup(1, 2, device)
+        stark = Stark(air1, expansion_factor=4, num_colinearity_checks=2,
+                      mesh=make_mesh(MESH_SHARDS, device))
+        boundary1 = air1.boundary_constraints(rp1.hash(4242))
+        small[device] = stark.prove(rp1.trace(4242), boundary1, randomizer_seed=b"mesh")
+        if not stark.verify(small[device], boundary1):
+            raise AssertionError(f"the small mesh proof from {device} does not verify")
+    if small["cuda"] != small["cpu"]:
+        raise AssertionError("cuda and cpu mesh provers disagree on the small run")
+
+    info = dict(
+        shards=MESH_SHARDS, processes=mesh.world, sharded_ntt_n=n, shard_counts=list(shard_counts),
+        sharded_transforms_equal=transforms, exchanges_nat_nat_cyc_nat=[3, 2, 2],
+        lde=f"{n} -> {lde_len}", sharded_lde_ms=round(lde_ms, 4), single_lde_ms=round(single_lde_ms, 4),
+        commit=f"2 columns x {lde_len}, pair leaves", commit_sharded_ms=round(commit_ms, 4),
+        commit_columns_ms=round(single_commit_ms, 4), commit_equal=True,
+        chain=chain, fri_domain=sharded.fri_domain_length, equals_single_device_proof=True,
+        verifies=True, cold_prove_s=round(cold_s, 3), warm_prove_s=[round(warm_a, 3), round(warm_b, 3)],
+        single_warm_prove_s=[round(single_a, 3), round(single_b, 3)], exchanges_per_prove=exchanges,
+        launches=launches, phase_split_warm_s=split, peak_device_bytes=peak,
+        small_cuda_cpu_identical=True,
+    )
+    emit("mesh", **info)
     return info
+
+
+def phase_dist(log_n: int = 20) -> None:
+    """The sharded NTT through a torch.distributed group of this one process
+    (nccl): the process-group branch of Mesh.all_to_all on the card."""
+    import tempfile
+
+    from stark_anatomy_tpu_torch.parallel import distributed, make_mesh
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
+        if not distributed.init("file://" + os.path.join(d, "store"), 1, 0, device="cuda"):
+            raise AssertionError("distributed.init did not initialise a process group")
+        mesh = make_mesh(MESH_SHARDS, group=distributed.world_group())
+        if mesh.world != 1 or mesh.group is None:
+            raise AssertionError("expected a one-process group")
+        # a mesh with a group exchanges through all_to_all_single, also when
+        # the group is this process alone
+        x = edge_words(1 << log_n, 24, canonical=True)
+        done = check_sharded_ntt(mesh, x, "sharded_ntt over a process group")
+        backend = torch.distributed.get_backend(mesh.group)
+        torch.distributed.destroy_process_group()
+    emit("dist", backend=backend, processes=1, shards=MESH_SHARDS, sharded_transforms_equal=done)
 
 
 def table_cases(n: int, registers: int) -> tuple:
@@ -605,6 +812,8 @@ def table_cases(n: int, registers: int) -> tuple:
     a, b = edge_words(n, 11), edge_words(n, 12).roll(5, dims=1)
     x = edge_words(n, 13, canonical=True)
     tw = nttmod._twiddles(n, False, "cuda")
+    g = MESH_SHARDS  # the mesh prove's column transforms: n / g groups of g
+    tw_g = nttmod._twiddles(g, False, "cuda")
     # the boundary-quotient tree's pair leaves: both halves of every register
     leaves = n // 2
     msg_len = 32 * registers
@@ -643,6 +852,10 @@ def table_cases(n: int, registers: int) -> tuple:
                       len(late) * (n // 2),
                       sum(32 * n + 16 * (1 << (s - 1)) for s in late), len(late),
                       lambda: stages(ntt_kernels.ntt_stage, scratch)),
+        # launched by a prove on a mesh only
+        "ntt_grouped": (lambda: ntt_kernels.ntt_grouped(x, tw_g, g),
+                        lambda: ntt_kernels.ntt_grouped_plain(x, tw_g, g),
+                        (g.bit_length() - 1) * (n // 2), 32 * n, 1),
         "blake2b_planes": (lambda: bk.blake2b_planes(msg, msg_len),
                            lambda: b2.blake2b_planes_plain(msg, msg_len),
                            leaves, (msg_len + 64) * leaves, 1),
@@ -650,17 +863,19 @@ def table_cases(n: int, registers: int) -> tuple:
     shapes = {name: f"n={n}" for name in cases}
     shapes["fp_pow_const"] = f"n={n_pow} e=p-2"
     shapes["ntt_stage"] = f"n={n} s={late[0]}..{late[-1]}"
+    shapes["ntt_grouped"] = f"n={n} g={g}"
     shapes["blake2b_planes"] = f"{msg_len} B x {leaves}"
     return cases, shapes
 
 
-def phase_table(results: dict, full: dict, airs: dict | None) -> list:
+def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None) -> list:
     """Each kernel held against its plain version at the shapes of EVERY
     driven path (the Rescue-Prime prove of the full phase and, where the airs
     phase ran, the Fibonacci and MiMC proves: each path's own FRI domain,
     Fermat-power length, late NTT stages and leaf width), then timed beside
     the plain version at the full phase's shapes; bounds from those sizes.
-    `launches` is the full phase's count; the airs phase's stand beside it."""
+    `launches` is the full phase's count, for a mesh-only kernel the mesh
+    phase's; the airs and mesh phases' counts stand beside it."""
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
     from stark_anatomy_tpu_torch.ops.field import PRIME
 
@@ -702,7 +917,7 @@ def phase_table(results: dict, full: dict, airs: dict | None) -> list:
         err = max(c["max_abs_err"] for c in compared_at[name])
         table.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": full["launches"][name],
+            "launches": (mesh if mesh and name in MESH_ONLY else full)["launches"][name],
             "max_abs_err": max(err, results.get(name, {}).get("max_abs_err", 0)),
             "ms": ms, "plain_ms": plain_ms, "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -710,6 +925,8 @@ def phase_table(results: dict, full: dict, airs: dict | None) -> list:
         })
         if airs:
             table[-1].update({f"launches_{air}": info["launches"][name] for air, info in airs.items()})
+        if mesh:
+            table[-1]["launches_mesh"] = mesh["launches"][name]
     # fp_pow_const is launch-bound at the prove path's shape: its time where
     # the arithmetic shows, beside the operations bound there.
     e_inv = PRIME - 2
@@ -762,7 +979,7 @@ def phase_profile(chain: int, out_dir: str | None, warm_prove_s: float) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full")
+    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full,mesh,dist")
     ap.add_argument("--verbose-build", action="store_true", help="print ptxas resource usage")
     ap.add_argument("--chain", type=int, default=32765, help="chain length of the full phase")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json / profile.json")
@@ -791,17 +1008,26 @@ def main() -> int:
     if "resume" in phases:
         phase_resume()
     if "full" not in phases:
+        if "mesh" in phases:
+            phase_mesh(args.chain)
+        if "dist" in phases:
+            phase_dist()
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
-    full = phase_full(args.chain)
-    table = phase_table(results, full, airs)
+    full, full_run = phase_full(args.chain)
+    mesh = phase_mesh(args.chain, full_run) if "mesh" in phases else None
+    del full_run
+    if "dist" in phases:
+        phase_dist()
+    table = phase_table(results, full, airs, mesh)
     if "profile" in phases:
         phase_profile(args.chain, args.out, full["warm_prove_s"])
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
-            json.dump({"gpu": gpu_name_and_limit(), "full": full, "airs": airs, "kernels": table},
+            json.dump({"gpu": gpu_name_and_limit(), "full": full, "airs": airs, "mesh": mesh,
+                       "kernels": table},
                       fh, indent=1)
     print(json.dumps({"kernels": table}), flush=True)
     print(gpu_name_and_limit(), flush=True)

@@ -1,5 +1,6 @@
-// Radix-2 NTT over F_p: ntt_block (first stages in shared memory) and
-// ntt_stage (one global stage per launch).
+// Radix-2 NTT over F_p: ntt_block (first stages in shared memory),
+// ntt_stage (one global stage per launch) and ntt_grouped (many small
+// transforms, each wholly in shared memory).
 //
 // Replaces: stark_anatomy_tpu/ops/ntt_pallas.py `_early_kernel_factory` /
 // `_run_early` (ntt_block) and `_late_kernel` / `_run_late_stage`
@@ -27,6 +28,22 @@
 //
 // Every size n = 2^k >= 2 is accepted: a transform smaller than the block
 // size runs entirely in one block of n/2 threads.
+//
+// ntt_grouped replaces stark_anatomy_tpu/ops/ntt_pallas.py
+// `grouped_ntt_with_tables` (the early kernel run over aligned lane groups):
+// n/g independent size-g transforms of a flat array, g = 2^log_group <= 128,
+// every aligned run of g elements one transform; the column transforms of the
+// four-step mesh NTT. NATURAL-ORDER GROUPS IN, NATURAL-ORDER GROUPS OUT: the
+// Pallas kernel works by lane rolls and so needs each group handed over
+// bit-reversed (a gather by its caller); here the global load is linear and
+// coalesced and the in-group bit reversal goes into the shared-memory index,
+// so the caller's gather is not needed. Bound on an H100: BYTES (2 x 16 B
+// per element against at most 7 butterfly stages). Design: one thread block
+// owns 1024 consecutive elements = 1024/g whole groups (16 KB of shared
+// memory), one thread per butterfly per stage, twiddle w_g^(j * g/2^s) read
+// from the (4, g/2) master table of size g, the scale (1/g for the inverse)
+// multiplied in on load. Any n that is a multiple of g: the last block is
+// ragged, n < 1024 runs in one smaller block.
 #include "field.cuh"
 
 namespace {
@@ -95,6 +112,43 @@ __global__ void ntt_stage_kernel(uint32_t* __restrict__ x, long stride,
   fp::store(x, stride, pos + h, fp::sub(e, t));
 }
 
+__global__ void ntt_grouped_kernel(const uint32_t* __restrict__ x, long x_stride,
+                                   uint32_t* __restrict__ out, long out_stride,
+                                   const uint32_t* __restrict__ tw, long tw_stride,
+                                   long n, int log_group, int use_scale,
+                                   fp::Fe scale) {
+  __shared__ uint4 sm[1024];
+  const int tid = threadIdx.x;
+  const long base = (long)blockIdx.x << 10;
+  const int count = (int)((n - base) < 1024L ? (n - base) : 1024L);
+  const int in_group = (1 << log_group) - 1;
+
+  for (int l = tid; l < count; l += blockDim.x) {
+    fp::Fe v = fp::load(x, x_stride, base + l);
+    if (use_scale) v = fp::mont_mul(v, scale);
+    const int j = (int)(__brev((uint32_t)(l & in_group)) >> (32 - log_group));
+    sm[(l & ~in_group) | j] = pack(v);
+  }
+  __syncthreads();
+
+  for (int s = 1; s <= log_group; ++s) {
+    const int h = 1 << (s - 1);
+    for (int t = tid; t < (count >> 1); t += blockDim.x) {
+      const int j = t & (h - 1);
+      const int pos = ((t >> (s - 1)) << s) + j;
+      const fp::Fe w = fp::load(tw, tw_stride, (long)j << (log_group - s));
+      const fp::Fe e = unpack(sm[pos]);
+      const fp::Fe o = fp::mont_mul(unpack(sm[pos + h]), w);
+      sm[pos] = pack(fp::add(e, o));
+      sm[pos + h] = pack(fp::sub(e, o));
+    }
+    __syncthreads();
+  }
+
+  for (int l = tid; l < count; l += blockDim.x)
+    fp::store(out, out_stride, base + l, unpack(sm[l]));
+}
+
 }  // namespace
 
 // Stages 1..log_block of a 2^log_n-point transform: reads x in bit-reversed
@@ -132,5 +186,30 @@ extern "C" int ntt_stage(uint32_t* x, long stride, const uint32_t* tw,
   const unsigned blocks = (unsigned)((butterflies + threads - 1) / threads);
   ntt_stage_kernel<<<blocks, threads, 0, stream>>>(x, stride, tw, tw_stride,
                                                    log_n, s);
+  return (int)cudaGetLastError();
+}
+
+// n / 2^log_group independent transforms of size 2^log_group, natural order
+// in and out (optionally times `scale`). 1 <= log_group <= 7, n a positive
+// multiple of the group size. tw: planes of the g/2-entry master twiddle
+// table of size g.
+extern "C" int ntt_grouped(const uint32_t* x, long x_stride, uint32_t* out,
+                           long out_stride, const uint32_t* tw, long tw_stride,
+                           long n, int log_group, int use_scale, uint32_t s0,
+                           uint32_t s1, uint32_t s2, uint32_t s3,
+                           cudaStream_t stream) {
+  if (log_group < 1 || log_group > 7 || n < 1 || (n & ((1L << log_group) - 1)) ||
+      n > (1L << 40))
+    return (int)cudaErrorInvalidValue;
+  fp::Fe scale;
+  scale.w[0] = s0;
+  scale.w[1] = s1;
+  scale.w[2] = s2;
+  scale.w[3] = s3;
+  const unsigned blocks = (unsigned)((n + 1023) >> 10);
+  const unsigned threads = n >= 1024 ? 512u : (unsigned)(n >> 1);
+  ntt_grouped_kernel<<<blocks, threads, 0, stream>>>(
+      x, x_stride, out, out_stride, tw, tw_stride, n, log_group, use_scale,
+      scale);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,10 @@ Szepieniec's "Anatomy of a STARK"), same transcript:
   roots and transcript are identical either way;
 - the Fiat-Shamir transcript, index sampling, colinearity checks and path
   verification are host-side exact integer work;
+- with ``mesh`` (parallel/mesh.py) every device commit is the sharded one
+  (parallel/merkle_sharded.py); folds stay whole-tensor math, so the mesh
+  must live in one process. Proof bytes do not depend on the mesh and the
+  verifier never looks at it;
 - with ``checkpoint_dir`` every committed round's standard-form codeword is
   snapshotted (utils/checkpoint.py, stage ``fri-r{r}``), host-tail rounds
   included, and a later call replays the completed rounds from disk.
@@ -75,7 +79,21 @@ from stark_anatomy_tpu_torch.utils.encoding import (
     nonce_to_item,
     pow_digest_ok,
 )
+from stark_anatomy_tpu_torch.parallel.merkle_sharded import commit_sharded
 from stark_anatomy_tpu_torch.utils.telemetry import phase as _tphase
+
+#: where the prover for a mesh spread over several processes is queued
+MULTI_PROCESS_PROVE = ("proving on a mesh spread over several processes is not implemented: "
+                       "ROADMAP.md queue 1 item 5b (multi-process Stark.prove); the sharded NTT, LDE "
+                       "and commit of stark_anatomy_tpu_torch.parallel do take such a mesh")
+
+
+def commit(columns, mesh=None, pair: bool = True) -> MerkleTree:
+    """Merkle-commit standard-form codeword columns: the sharded commit
+    under a mesh, commit_columns without one. The same tree either way."""
+    if mesh is None:
+        return commit_columns(columns, pair=pair)
+    return commit_sharded(columns, mesh, pair=pair)
 
 
 def fold(codeword_mont: torch.Tensor, alpha: int, offset: int, omega: int) -> torch.Tensor:
@@ -111,7 +129,8 @@ class Fri:
     max degree bound); num_colinearity_tests: soundness repetitions;
     grinding_bits: proof-of-work bits ground into the transcript before
     query sampling (0 = no pow item); host_tail_n: codewords of at most this
-    length finish on the host (it changes no transcript byte).
+    length finish on the host (it changes no transcript byte); mesh: an
+    optional single-process parallel.Mesh for the commits.
     """
 
     offset: int
@@ -120,6 +139,7 @@ class Fri:
     num_colinearity_tests: int
     grinding_bits: int = 0
     host_tail_n: int = 1 << 14
+    mesh: object | None = None
 
     def __post_init__(self):
         if self.domain_length & (self.domain_length - 1):
@@ -178,6 +198,8 @@ class Fri:
         replays the completed rounds from disk. Trees are re-hashed from the
         stored codewords (commitment is deterministic), so resume skips every
         completed fold and produces a byte-identical transcript."""
+        if self.mesh is not None and self.mesh.world > 1:
+            raise NotImplementedError(MULTI_PROCESS_PROVE)
         if codeword_mont.shape[-1] != self.domain_length:
             raise ValueError("codeword length != configured domain length")
         checkpoint_meta = checkpoint_meta or {}
@@ -209,7 +231,7 @@ class Fri:
                     tree = self._commit_host([int(v) for v in words_to_ints(words)])
                 else:
                     standard = to_tensor(words, codeword_mont.device)
-                    tree = commit_columns([standard], pair=True)
+                    tree = commit([standard], self.mesh)
                 codewords.append(standard)
                 trees.append(tree)
                 proof_stream.push({"fri_root": digest_to_item(tree.root)})
@@ -229,7 +251,7 @@ class Fri:
                                     proof_stream, checkpoint_dir, checkpoint_meta)
                 break
             standard = fk.from_mont(codeword)
-            tree = commit_columns([standard], pair=True)
+            tree = commit([standard], self.mesh)
             if checkpoint_dir is not None:
                 checkpoint.save(checkpoint_dir, f"fri-r{r}", [],
                                 {"codeword": to_numpy(standard)}, checkpoint_meta)

@@ -1,8 +1,8 @@
 """STARK prover/verifier over an AIR, evaluation-form, on one device.
 
-Counterpart of the JAX package's iop/stark.py (standard single-device
-branch); same transcript and, for a fixed ``randomizer_seed``, the same proof
-bytes. Protocol follows Szepieniec's "Anatomy of a STARK" parts 5/6 with no
+Counterpart of the JAX package's iop/stark.py (the standard branch, without
+or with a mesh); same transcript and, for a fixed ``randomizer_seed``, the
+same proof bytes. Protocol follows Szepieniec's "Anatomy of a STARK" parts 5/6 with no
 symbolic polynomial arithmetic on the hot path: every quotient is computed
 pointwise on the LDE coset domain, where zerofiers never vanish, through the
 field kernels (ops/field_kernels.py) on (4, n) Montgomery word planes:
@@ -41,6 +41,14 @@ device and on the host, and describes its constant columns as
 ``constant_columns_bytes(O)`` or ``constant_columns(O)`` (each column
 extended like a trace column; none at all is valid).
 
+``Stark(mesh=...)`` (parallel/mesh.py ``make_mesh``) cuts every column's
+domain into the mesh's shards: the trace columns are extended through the
+four-step sharded transforms (parallel/ntt_sharded.py) and every device
+commit is the sharded one (parallel/merkle_sharded.py). The elementwise
+phases work on whole tensors, so the mesh must live in one process;
+``prove`` on a mesh spread over several raises. The proof bytes are those of
+the prover without a mesh, and the verifier never looks at it.
+
 ``prove(checkpoint_dir=...)`` snapshots the expensive intermediates before
 FRI and after every FRI round (utils/checkpoint.py) and resumes from them.
 
@@ -65,12 +73,8 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from stark_anatomy_tpu_torch.iop.fri import Fri
-from stark_anatomy_tpu_torch.iop.merkle import (
-    commit_columns,
-    gather_requests,
-    verify_multiproof,
-)
+from stark_anatomy_tpu_torch.iop.fri import MULTI_PROCESS_PROVE, Fri, commit
+from stark_anatomy_tpu_torch.iop.merkle import gather_requests, verify_multiproof
 from stark_anatomy_tpu_torch.iop.proof_stream import ProofStream, ProofStreamError
 from stark_anatomy_tpu_torch.ops import field_kernels as fk
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
@@ -94,6 +98,7 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     to_tensor,
     words_to_ints,
 )
+from stark_anatomy_tpu_torch.parallel.ntt_sharded import sharded_lde, sharded_ntt
 from stark_anatomy_tpu_torch.utils import checkpoint, threefry
 from stark_anatomy_tpu_torch.utils.encoding import (
     digest_to_item,
@@ -200,6 +205,9 @@ class Stark:
     grinding_bits: transcript proof-of-work bits before query sampling
     (iop/fri.py); adds directly to the FRI soundness bits.
     fri_host_tail_n: FRI codewords of at most this length finish on the host.
+    mesh: an optional parallel.Mesh; the prover then runs on the mesh's
+    device (``device`` is set from it) through the sharded transforms and
+    commits.
     """
 
     air: object
@@ -209,9 +217,12 @@ class Stark:
     grinding_bits: int = 0
     device: str = "cuda"
     fri_host_tail_n: int = 1 << 14
+    mesh: object | None = None
     _cache: dict = dc_field(default_factory=dict, repr=False)
 
     def __post_init__(self):
+        if self.mesh is not None:
+            self.device = str(self.mesh.device)
         if self.num_randomizers is None:
             self.num_randomizers = 4 * self.num_colinearity_checks
         # The transition zerofier is (x^O - 1) divided by one (x - omicron^r)
@@ -296,6 +307,7 @@ class Stark:
             num_colinearity_tests=self.num_colinearity_checks,
             grinding_bits=self.grinding_bits,
             host_tail_n=self.fri_host_tail_n,
+            mesh=self.mesh,
         )
 
     # -- soundness accounting ----------------------------------------------
@@ -431,8 +443,20 @@ class Stark:
         o = self.omicron_domain_length
         if words.shape != (4, o):
             raise ValueError(f"expected (4, {o}) word planes, got {words.shape}")
-        coeffs = nttmod.intt(fk.to_mont(to_tensor(words, device)))
-        return nttmod.coset_evaluate(coeffs, self.fri_domain_length, self.offset)
+        f = self.fri_domain_length
+        evals = fk.to_mont(to_tensor(words, device))
+        if self.mesh is not None:
+            # The four-step transform needs S | n and S | n/S; tiny domains
+            # take the single-device transform (the same values).
+            s = self.mesh.shards
+            if o % s == 0 and (o // s) % s == 0:
+                if f % s == 0 and (f // s) % s == 0:
+                    # four exchanges: iNTT -> CYCLIC coefficients, local
+                    # offset scale and pad, NTT cyclic -> natural
+                    return sharded_lde(evals, f, self.offset, self.mesh)
+                coeffs = sharded_ntt(evals, self.mesh, inverse=True)
+                return nttmod.coset_evaluate(coeffs, f, self.offset)
+        return nttmod.coset_evaluate(nttmod.intt(evals), f, self.offset)
 
     def _constants_codewords(self, device) -> List[torch.Tensor]:
         """(4, F) Montgomery codewords of the AIR's constant columns.
@@ -635,6 +659,8 @@ class Stark:
         the same trace, boundary and seed resumes from the latest of them to
         the same bytes. A snapshot of other inputs is refused.
         """
+        if self.mesh is not None and self.mesh.world > 1:
+            raise NotImplementedError(MULTI_PROCESS_PROVE)
         device = require_device(self.device)
         if randomizer_seed is None:
             randomizer_seed = os.urandom(32)
@@ -667,7 +693,7 @@ class Stark:
         # One tree over all boundary quotients (leaf = the w-tuple rows of a
         # mirror pair).
         with _phase("prove.bq-commit", device):
-            bq_tree = commit_columns(bq_standard, pair=True)
+            bq_tree = commit(bq_standard, self.mesh)
         ps.push({"bq_root": digest_to_item(bq_tree.root)})
 
         # The zero-knowledge FRI randomizer is committed BEFORE the
@@ -675,7 +701,7 @@ class Stark:
         # weights bind it.
         with _phase("prove.zk-randomizer", device):
             zk_standard = self._zk_codeword(randomizer_seed, device)
-            zk_tree = commit_columns([zk_standard], pair=True)
+            zk_tree = commit([zk_standard], self.mesh)
         ps.push({"zk_root": digest_to_item(zk_tree.root)})
 
         n_terms = self.air.num_constraints + w
@@ -731,9 +757,9 @@ class Stark:
         ps = ProofStream(loaded["items"])
         with _phase("prove.resume-commit", device):
             bq_standard = [to_tensor(arrays[f"bq{j}"], device) for j in range(self.num_registers)]
-            bq_tree = commit_columns(bq_standard, pair=True)
+            bq_tree = commit(bq_standard, self.mesh)
             zk_standard = to_tensor(arrays["zk"], device)
-            zk_tree = commit_columns([zk_standard], pair=True)
+            zk_tree = commit([zk_standard], self.mesh)
         comb = to_tensor(arrays["comb"], device)
         return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
                                   device, checkpoint_dir, ckpt_meta)

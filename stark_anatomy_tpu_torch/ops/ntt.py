@@ -10,7 +10,9 @@ built on the tensor's device by repeated doubling (log n batched products).
 Everything is exact integer math: outputs are bit-identical on both devices.
 
 The only module state is the twiddle-table cache, keyed by
-``(n, inverse, device)``.
+``(n, inverse, device)``, and beside it the cache of the mesh transforms'
+tables (``cached_table``; parallel/ntt_sharded.py); ``clear_twiddle_cache``
+empties both.
 """
 
 from __future__ import annotations
@@ -23,8 +25,8 @@ from stark_anatomy_tpu_torch.ops import ntt_kernels
 from stark_anatomy_tpu_torch.ops.field import PRIME, finv, primitive_root_of_unity
 from stark_anatomy_tpu_torch.ops.limbs import R_MOD_P, mont, require_device
 
-__all__ = ["ntt", "intt", "coset_lde", "coset_evaluate", "coset_interpolate", "powers", "poly_mul",
-           "clear_twiddle_cache"]
+__all__ = ["ntt", "intt", "grouped_ntt", "coset_lde", "coset_evaluate", "coset_interpolate", "powers",
+           "poly_mul", "cached_table", "clear_twiddle_cache"]
 
 _ntt_core = ntt_kernels.transform_plain
 
@@ -66,9 +68,22 @@ def _twiddles(n: int, inverse: bool, device="cuda") -> torch.Tensor:
     return _TWIDDLE_CACHE[key]
 
 
+_TABLE_CACHE: dict = {}
+
+
+def cached_table(key: tuple, build) -> torch.Tensor:
+    """The table cached under `key`, built with build() at first use. The
+    key names everything the table depends on, its device included."""
+    if key not in _TABLE_CACHE:
+        _TABLE_CACHE[key] = build()
+    return _TABLE_CACHE[key]
+
+
 def clear_twiddle_cache() -> None:
-    """Drop every cached twiddle table (n/2 elements each, on its device)."""
+    """Drop every cached twiddle table (n/2 elements each, on its device)
+    and every table cached through cached_table."""
     _TWIDDLE_CACHE.clear()
+    _TABLE_CACHE.clear()
 
 
 def _size(x: torch.Tensor) -> int:
@@ -93,6 +108,18 @@ def intt(evals_mont: torch.Tensor) -> torch.Tensor:
         return evals_mont
     return ntt_kernels.transform(
         evals_mont, _twiddles(n, True, evals_mont.device), scale=mont(finv(n))
+    )
+
+
+def grouped_ntt(x_mont: torch.Tensor, group: int, inverse: bool = False) -> torch.Tensor:
+    """x.shape[-1] / group independent size-`group` transforms: every aligned
+    run of `group` elements is transformed on <omega_group> (forward) or back
+    (inverse, the 1/group folded in), natural order in and out."""
+    if group < 2 or group > 128 or group & (group - 1):
+        raise ValueError(f"group must be a power of two in [2, 128], got {group}")
+    return ntt_kernels.ntt_grouped(
+        x_mont, _twiddles(group, inverse, x_mont.device), group,
+        scale=mont(finv(group)) if inverse else None,
     )
 
 

@@ -18,6 +18,13 @@ canonical values of the transform, so they agree bit for bit.
 plain version (``ntt_block_plain``, ``ntt_stage_plain``: the same
 decimation-in-time stages in torch ops) which a CPU tensor takes and which
 the kernel is compared with on the card.
+
+``ntt_grouped(x, tw, group, scale)`` is the counterpart of
+``grouped_ntt_with_tables``: every aligned run of ``group`` <= 128 elements
+of ``x`` is one independent transform, natural order in and out, with the
+``(4, group/2)`` master table of size ``group``. One ``ntt_grouped`` launch
+on the card, ``ntt_grouped_plain`` on the CPU. The mesh four-step NTT
+(parallel/ntt_sharded.py) runs its column transforms through it.
 """
 
 from __future__ import annotations
@@ -32,6 +39,8 @@ from stark_anatomy_tpu_torch.ops.limbs import int_to_words
 #: log2 of the largest run of outputs one thread block transforms (16 KB of
 #: shared memory at 16 B per element).
 LOG_BLOCK_MAX = 10
+#: log2 of the largest group ntt_grouped transforms (as the TPU kernel: 128).
+LOG_GROUP_MAX = 7
 
 
 def _log2(n: int) -> int:
@@ -72,13 +81,16 @@ def _bit_reverse_indices(log_n: int, device) -> torch.Tensor:
     return rev
 
 
-def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int) -> torch.Tensor:
+def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int,
+                    size: int | None = None) -> torch.Tensor:
     """Plain version of ntt_stage: DIT stage s (m = 2^s, h = m/2) combines
-    positions (pos, pos + h) of every group of m with w^(j * n/m)."""
+    positions (pos, pos + h) of every group of m with w^(j * size/m), where
+    `size` (default: all of x) is the transform length tw belongs to."""
     n = x.shape[1]
+    size = n if size is None else size
     m, h = 1 << s, 1 << (s - 1)
     groups = x.reshape(4, n // m, 2, h)
-    w = tw[:, :: n // m][:, None, :]
+    w = tw[:, :: size // m][:, None, :]
     e = groups[:, :, 0, :]
     t = ft.mont_mul(groups[:, :, 1, :], w)
     return torch.stack([ft.add(e, t), ft.sub(e, t)], dim=2).reshape(4, n)
@@ -94,6 +106,49 @@ def ntt_block_plain(x: torch.Tensor, tw: torch.Tensor, log_block: int,
     for s in range(1, log_block + 1):
         x = ntt_stage_plain(x, tw, s)
     return x
+
+
+def ntt_grouped_plain(x: torch.Tensor, tw: torch.Tensor, group: int,
+                      scale: int | None = None) -> torch.Tensor:
+    """Plain version of ntt_grouped: bit-reverse inside every run of `group`
+    elements, the optional scale, then DIT stages 1..log2(group) over the
+    whole batch (a stage of m <= group never crosses a run)."""
+    n = x.shape[1]
+    log_group = _log2(group)
+    rev = _bit_reverse_indices(log_group, x.device)
+    x = x.reshape(4, n // group, group).index_select(2, rev).reshape(4, n)
+    if scale is not None:
+        x = ft.mont_mul(x, scale)
+    for s in range(1, log_group + 1):
+        x = ntt_stage_plain(x, tw, s, size=group)
+    return x
+
+
+def ntt_grouped(x: torch.Tensor, tw: torch.Tensor, group: int,
+                scale: int | None = None) -> torch.Tensor:
+    """x.shape[1] / group independent size-`group` transforms (each aligned
+    run of `group` elements, natural order in and out), times `scale`;
+    returns a new tensor. tw: the (4, group/2) master table of size group."""
+    _build.check_planes(x, 4, "ntt_grouped.x")
+    _build.check_planes(tw, 4, "ntt_grouped.tw")
+    log_group = _log2(group)
+    if not 1 <= log_group <= LOG_GROUP_MAX:
+        raise ValueError(f"group must be a power of two in [2, {1 << LOG_GROUP_MAX}], got {group}")
+    n = x.shape[1]
+    if n % group or tw.shape[1] != group // 2 or tw.device != x.device:
+        raise ValueError("need a whole number of groups and a (4, group/2) twiddle table "
+                         "on the input's device")
+    if x.device.type != "cuda":
+        return ntt_grouped_plain(x, tw, group, scale)
+    out = torch.empty((4, n), dtype=torch.int32, device=x.device)
+    c = int_to_words(scale if scale is not None else 0)
+    with torch.cuda.device(x.device):
+        _build.launch(
+            "ntt_grouped", x.data_ptr(), x.stride(0), out.data_ptr(), out.stride(0),
+            tw.data_ptr(), tw.stride(0), n, log_group, int(scale is not None),
+            c[0], c[1], c[2], c[3],
+        )
+    return out
 
 
 def _check_transform_args(x: torch.Tensor, tw: torch.Tensor) -> int:

@@ -1,0 +1,139 @@
+"""The shard mesh: S shards of the domain spread over W processes.
+
+Counterpart of the JAX package's parallel/mesh.py. A ``Mesh`` names how a
+codeword's domain axis is cut: into ``shards`` (S) contiguous blocks, held
+``local_shards`` (S / W) to a process by the ``world`` (W) processes of a
+``torch.distributed`` group. Without a group the mesh lives in one process:
+all S shards are blocks of one tensor on one device and an exchange between
+shards is a permuted copy on that device. With a group the same code
+exchanges through ``torch.distributed`` (NCCL for CUDA tensors, gloo for
+CPU ones). Nothing here depends on which: the four-step NTT
+(parallel/ntt_sharded.py) and the sharded commit (parallel/merkle_sharded.py)
+are written once, for S shards.
+
+Layouts of a sharded ``(4, n)`` codeword (the names of ntt_sharded.py):
+natural = contiguous blocks, so each process holds the ``(4, n/W)`` tensor of
+its block (with W = 1 simply the ``(4, n)`` tensor); cyclic = stored index
+``k1 * n/S + k2`` holds element ``k1 + S * k2``, cut the same way.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from stark_anatomy_tpu_torch.ops.limbs import require_device, to_numpy
+
+
+@dataclass(frozen=True)
+class Mesh:
+    """S shards on `device`, over the processes of `group` (None: this one)."""
+
+    shards: int
+    device: torch.device
+    group: object | None = None
+    _counts: dict = field(default_factory=lambda: {"all_to_all": 0}, compare=False, repr=False)
+
+    def __post_init__(self):
+        if self.shards < 1:
+            raise ValueError("a mesh needs at least one shard")
+        if self.shards % self.world:
+            raise ValueError(
+                f"the {self.world} processes of the group must divide the {self.shards} shards")
+
+    @property
+    def world(self) -> int:
+        """W: the number of processes holding shards (1 without a group)."""
+        return 1 if self.group is None else dist.get_world_size(self.group)
+
+    @property
+    def rank(self) -> int:
+        return 0 if self.group is None else dist.get_rank(self.group)
+
+    @property
+    def local_shards(self) -> int:
+        """S / W: the shards this process holds, shard rank * S/W first."""
+        return self.shards // self.world
+
+    @property
+    def exchanges(self) -> int:
+        """all_to_all calls made on this mesh so far."""
+        return self._counts["all_to_all"]
+
+    def all_to_all(self, y: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+        """The tiled all-to-all over the S shards.
+
+        y: ``(planes, S/W, ...)``, the local shards' arrays stacked on dim 1;
+        split_axis and concat_axis are dims of y (>= 2). Every shard cuts
+        its array into S chunks along split_axis and sends chunk d to shard
+        d; every shard concatenates what it receives along concat_axis in
+        the order of the senders (``jax.lax.all_to_all(..., tiled=True)``).
+        Without a group: a permuted copy on the device. With one (of any
+        size): a local permute and one ``all_to_all_single`` of the whole
+        local tensor."""
+        s, w, local = self.shards, self.world, self.local_shards
+        if y.dim() < 3 or y.shape[1] != local or min(split_axis, concat_axis) < 2:
+            raise ValueError(f"expected (planes, {local}, ...) and axes >= 2, got {tuple(y.shape)}")
+        if y.shape[split_axis] % s:
+            raise ValueError(f"axis {split_axis} of {tuple(y.shape)} does not split {s} ways")
+        self._counts["all_to_all"] += 1
+        # split axis -> (destination process, its local shard, chunk)
+        y = y.unflatten(split_axis, (w, local, y.shape[split_axis] // s))
+        if self.group is not None:
+            send = y.movedim(split_axis, 0).contiguous()
+            recv = torch.empty_like(send)
+            dist.all_to_all_single(recv, send, group=self.group)
+            # (source process, planes, its local shard, ...) -> source shard on dim 1
+            y = recv.movedim(0, 1).flatten(1, 2)
+        else:
+            y = y.squeeze(split_axis)
+        # now dim 1 = source shard (all S), split_axis = destination local
+        # shard, split_axis + 1 = the chunk; the rest as before, one to the
+        # right from split_axis on
+        cat = concat_axis + (concat_axis >= split_axis)
+        order = [0, split_axis]
+        for d in range(2, y.dim()):
+            if d == split_axis:
+                continue
+            if d == cat:
+                order.append(1)
+            order.append(d)
+        at = order.index(1)
+        return y.permute(order).contiguous().flatten(at, at + 1)
+
+
+def make_mesh(num_shards: int, device="cuda", group=None) -> Mesh:
+    """A mesh of `num_shards` shards on `device` (``"cuda"``, the default,
+    raises without a card). `group`: the ``torch.distributed`` process group
+    whose processes share the shards (``distributed.world_group()`` after
+    ``distributed.init``); None keeps every shard in this process."""
+    return Mesh(int(num_shards), require_device(device), group)
+
+
+def shard(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """This process's contiguous block (along the last axis) of a tensor
+    that every process holds whole."""
+    n = t.shape[-1]
+    if n % mesh.world:
+        raise ValueError(f"the {mesh.world} processes must divide the length {n}")
+    block = n // mesh.world
+    return t[..., mesh.rank * block : (mesh.rank + 1) * block].contiguous()
+
+
+def gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """The whole tensor (blocks joined along the last axis) on every process,
+    on the device."""
+    if mesh.group is None:
+        return t
+    t = t.contiguous()
+    parts = [torch.empty_like(t) for _ in range(mesh.world)]
+    dist.all_gather(parts, t, group=mesh.group)
+    return torch.cat(parts, dim=-1)
+
+
+def host_gather(t: torch.Tensor, mesh: Mesh) -> np.ndarray:
+    """The whole array as uint32 numpy on every process."""
+    return to_numpy(gather(t, mesh))

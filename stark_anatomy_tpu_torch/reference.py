@@ -9,7 +9,10 @@ only, so a test can hand one numpy input to both packages. There are no
 learned weights to carry: round constants and twiddles are derived on both
 sides from the same integers. The only state either package writes to disk
 is a prover snapshot (utils/checkpoint.py); ``snapshot_from_reference``
-re-slices one written by the JAX package into this port's layout.
+re-slices one written by the JAX package into this port's layout. A mesh
+changes neither: ``natural_to_cyclic`` / ``cyclic_to_natural`` are the one
+index map both packages' sharded transforms share, and
+``merkle_levels_as_rows`` reads a tree of either package level by level.
 """
 
 from __future__ import annotations
@@ -57,6 +60,36 @@ def from_reference_digests(rows: np.ndarray, device="cpu") -> torch.Tensor:
 def to_reference_digests(planes: torch.Tensor) -> np.ndarray:
     """(16, n) int32 digest planes -> (n, 16) uint32 digest rows."""
     return np.ascontiguousarray(to_numpy(planes).T)
+
+
+def natural_to_cyclic(arr: np.ndarray, shards: int) -> np.ndarray:
+    """(k, n) array in natural order -> the cyclic layout of a mesh of
+    `shards` shards (both packages'): stored index i1*(n/S) + j holds element
+    i1 + S*j."""
+    k, n = arr.shape
+    return np.ascontiguousarray(np.transpose(arr.reshape(k, n // shards, shards), (0, 2, 1))).reshape(k, n)
+
+
+def cyclic_to_natural(arr: np.ndarray, shards: int) -> np.ndarray:
+    """The inverse of natural_to_cyclic."""
+    k, n = arr.shape
+    return np.ascontiguousarray(np.transpose(arr.reshape(k, shards, n // shards), (0, 2, 1))).reshape(k, n)
+
+
+def merkle_levels_as_rows(tree) -> list:
+    """Every level of a MerkleTree of either package as (m, 16) uint32 digest
+    rows, leaves first: this port keeps device levels as (16, m) int32 plane
+    tensors and host levels as rows; the JAX package keeps rows, or planes
+    for the levels its ``plane_levels`` names."""
+    planes = getattr(tree, "plane_levels", frozenset())
+    out = []
+    for i, level in enumerate(tree.levels):
+        if isinstance(level, torch.Tensor):
+            out.append(to_reference_digests(level))
+        else:
+            rows = np.asarray(level).astype(np.uint32)
+            out.append(np.ascontiguousarray(rows.T if i in planes else rows))
+    return out
 
 
 def stark_from_reference(cfg: dict, device="cuda"):

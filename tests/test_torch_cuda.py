@@ -44,3 +44,7 @@ def test_fibonacci_and_mimc_prove_through_the_kernels_and_agree_with_the_cpu(car
 
 def test_checkpoint_resume_on_the_card_gives_identical_bytes(card):
     chip_smoke.phase_resume()
+
+
+def test_the_mesh_path_on_the_card_equals_the_single_device_path(card):
+    chip_smoke.phase_mesh(chain=125, log_n=14)

@@ -57,7 +57,7 @@ def test_kernel_sources_ship_with_the_package():
         assert os.path.exists(os.path.join(_build.CSRC, name)), name
     assert set(_build.SIGNATURES) == set(_build.LAUNCHES) == {
         "fp_add", "fp_sub", "fp_mont_mul", "fp_butterfly", "fp_pow_const",
-        "ntt_block", "ntt_stage", "blake2b_planes"}
+        "ntt_block", "ntt_stage", "ntt_grouped", "blake2b_planes"}
 
 
 def test_default_device_raises_without_a_card_instead_of_running_on_the_cpu():
@@ -88,6 +88,8 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(fk.inv(a), ft.inv(a))
     tw = nttmod._twiddles(64, False, "cpu")
     assert torch.equal(ntt_kernels.transform(a, tw), ntt_kernels.transform_plain(a, tw))
+    tw8 = nttmod._twiddles(8, False, "cpu")
+    assert torch.equal(ntt_kernels.ntt_grouped(a, tw8, 8), ntt_kernels.ntt_grouped_plain(a, tw8, 8))
     msg = torch.cat([a, b])
     from stark_anatomy_tpu_torch.ops.blake2b import blake2b_planes_plain
 

@@ -10,7 +10,7 @@ from stark_anatomy_tpu.ops import ntt as ref_ntt
 from stark_anatomy_tpu.ops import ntt_pallas as ntp
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
 from stark_anatomy_tpu_torch.ops import ntt_kernels
-from stark_anatomy_tpu_torch.ops.field import GENERATOR, PRIME, finv
+from stark_anatomy_tpu_torch.ops.field import GENERATOR, PRIME, finv, primitive_root_of_unity
 from stark_anatomy_tpu_torch.ops.limbs import mont, random_felt_words, to_tensor
 from stark_anatomy_tpu_torch.reference import to_reference_limbs
 
@@ -83,3 +83,58 @@ def test_rejects_bad_sizes_and_tables():
         ntt_kernels.ntt_block(x, nttmod._twiddles(8, False, "cpu"), 4)
     with pytest.raises(ValueError):
         nttmod.coset_evaluate(x, 4, GENERATOR)
+
+
+def _grouped_reference(jx, group: int, inverse: bool):
+    """grouped_ntt_with_tables in interpret mode; the TPU kernel wants every
+    group handed over bit-reversed, the port's takes natural order."""
+    n = jx.shape[-1]
+    rev = ref_ntt.bit_reverse_indices(group)
+    flat = jnp.asarray(np.asarray(jx).reshape(8, n // group, group)[:, :, rev].reshape(8, n))
+    early = ntp.stage_tables(group, inverse)[0]
+    return ntp.grouped_ntt_with_tables(flat, early, group, inverse, interpret=True)
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("group", [2, 8, 128])
+@pytest.mark.parametrize("n", [1024, 2048])
+def test_grouped_plain_matches_pallas_interpret(n, group, inverse):
+    x, jx = _codeword(n, seed=n + group)
+    got = nttmod.grouped_ntt(x, group, inverse)
+    _same(got, _grouped_reference(jx, group, inverse))
+    tw = nttmod._twiddles(group, inverse, "cpu")
+    scale = mont(finv(group)) if inverse else None
+    assert torch.equal(got, ntt_kernels.ntt_grouped_plain(x, tw, group, scale))
+
+
+@pytest.mark.parametrize("inverse", [False, True])
+@pytest.mark.parametrize("group,n", [(2, 2), (2, 6), (4, 1028), (16, 48), (64, 4096), (128, 128)])
+def test_grouped_is_the_transform_of_every_group(group, n, inverse):
+    x, _ = _codeword(n, seed=group + n)
+    single = nttmod.intt if inverse else nttmod.ntt
+    want = torch.cat([single(x[:, i : i + group].contiguous()) for i in range(0, n, group)], dim=1)
+    assert torch.equal(nttmod.grouped_ntt(x, group, inverse), want)
+
+
+@pytest.mark.parametrize("log_n", [4, 10, 20, 24])
+@pytest.mark.parametrize("group", [2, 8, 128])
+def test_group_root_is_the_root_the_whole_transform_implies(log_n, group):
+    # the four-step NTT's column transforms use w_g = w_n^(n/g)
+    n = 1 << log_n
+    if group <= n:
+        assert pow(primitive_root_of_unity(n), n // group, PRIME) == primitive_root_of_unity(group)
+
+
+def test_grouped_rejects_bad_groups_and_tables():
+    x, _ = _codeword(256)
+    for group in (0, 1, 3, 12, 256):
+        with pytest.raises(ValueError, match="power of two in"):
+            nttmod.grouped_ntt(x, group)
+    with pytest.raises(ValueError, match="whole number of groups"):
+        nttmod.grouped_ntt(x[:, :100].contiguous(), 8)
+    with pytest.raises(ValueError, match="whole number of groups"):
+        ntt_kernels.ntt_grouped(x, nttmod._twiddles(16, False, "cpu"), 8)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt_kernels.ntt_grouped(x[:, ::2], nttmod._twiddles(8, False, "cpu"), 8)
+    with pytest.raises(TypeError):
+        ntt_kernels.ntt_grouped(x.to(torch.int64), nttmod._twiddles(8, False, "cpu"), 8)
