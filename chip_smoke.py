@@ -36,6 +36,8 @@ exits non-zero:
            a small run on cuda and on cpu, bytes identical
   dist     the same sharded NTT through a one-process torch.distributed
            group (nccl): the process-group branch of the exchange
+  tune     (only when named in --phases) the NTT passes timed over cuts of
+           the stages, tile widths and block sizes
   profile  (only when named in --phases) one warm full-size prove under
            torch.profiler: device time by kernel name, device busy share
 
@@ -299,6 +301,50 @@ def phase_kernels(results: dict) -> None:
             check("ntt_block+ntt_stage", case + " whole", ntt_kernels.transform(x, tw, scale),
                   ntt_kernels.transform_plain(x, tw, scale))
 
+    # every size up to the main path's through pass_plan: ntt_block's pass,
+    # each ntt_stage pass against the stage-by-stage plain version, the whole
+    # against transform_plain; the scale on and off in both directions at a
+    # few sizes. Above 2^20 both directions only at the sizes the proves
+    # drive (2^22, 2^24): the plain versions take most of this phase's time.
+    for log_n in range(1, 25):
+        n = 1 << log_n
+        x = edge_words(n, 30 + log_n, canonical=True)
+        plan = ntt_kernels.pass_plan(log_n)
+        for inverse in ((False,) if log_n in (21, 23) else (False, True)):
+            tw = nttmod._twiddles(n, inverse, "cuda")
+            scales = (None, mont(finv(n))) if log_n in (5, 13, 22) else \
+                ((mont(finv(n)),) if inverse else (None,))
+            for scale in scales:
+                case = f"plan log_n={log_n} inverse={inverse} scale={scale is not None}"
+                got = ntt_kernels.ntt_block(x, tw, plan[0][1], scale)
+                check("ntt_block", case, got, ntt_kernels.ntt_block_plain(x, tw, plan[0][1], scale))
+                for s, last in plan[1:]:
+                    want = ntt_kernels.ntt_stages_plain(got, tw, s, last)
+                    check("ntt_stage", f"{case} s={s}..{last}",
+                          ntt_kernels.ntt_stage(got, tw, s, last), want)
+                check("ntt_block+ntt_stage", case + " whole", ntt_kernels.transform(x, tw, scale),
+                      ntt_kernels.transform_plain(x, tw, scale))
+    torch.cuda.empty_cache()
+
+    # cuts of the stages that are not the plan's
+    for n, cuts in ((1 << 9, [[(1, 1), (2, 2), (3, 9)], [(1, 4), (5, 9)]]),
+                    (1 << 16, [[(1, 3), (4, 5), (6, 6), (7, 16)], [(1, 10), (11, 16)], [(1, 6), (7, 16)]]),
+                    (1 << 20, [[(1, 7), (8, 10), (11, 20)], [(1, 9), (10, 18), (19, 20)]])):
+        x = edge_words(n, 8, canonical=True)
+        for inverse in (False, True):
+            tw = nttmod._twiddles(n, inverse, "cuda")
+            scale = mont(finv(n)) if inverse else None
+            whole = ntt_kernels.transform_plain(x, tw, scale)
+            for cut in cuts:
+                case = f"n={n} inverse={inverse} cut={cut}"
+                got = ntt_kernels.ntt_block(x, tw, cut[0][1], scale)
+                check("ntt_block", case, got, ntt_kernels.ntt_block_plain(x, tw, cut[0][1], scale))
+                for s, last in cut[1:]:
+                    want = ntt_kernels.ntt_stages_plain(got, tw, s, last)
+                    check("ntt_stage", f"{case} s={s}..{last}",
+                          ntt_kernels.ntt_stage(got, tw, s, last), want)
+                check("ntt_block+ntt_stage", case + " whole", got, whole)
+
     # grouped NTT: n/g independent size-g transforms, natural order in and
     # out; the edge group sizes 2 and 128, ragged n (one group, three, a
     # block and a bit), any 128-bit input; forward and with the inverse's scale.
@@ -343,7 +389,7 @@ def phase_kernels(results: dict) -> None:
         "fp_butterfly": time_ms(lambda: fk.butterfly(a, b, b)),
         "fp_pow_const": time_ms(lambda: fk.pow_const(a, PRIME - 2)),
         "ntt_block": time_ms(lambda: ntt_kernels.ntt_block(a, tw, ntt_kernels.LOG_BLOCK_MAX)),
-        "ntt_stage": time_ms(lambda: ntt_kernels.ntt_stage(b, tw, 20)),
+        "ntt_stage": time_ms(lambda: ntt_kernels.ntt_stage(b, tw, 11, 20)),
         "ntt_grouped": time_ms(lambda: ntt_kernels.ntt_grouped(a, tw_g, MESH_SHARDS)),
         "blake2b_planes": time_ms(lambda: bk.blake2b_planes(msg, 64)),
     }
@@ -447,6 +493,10 @@ def require_prove_path(launches: dict, what: str, mesh: bool = False) -> None:
     stray = [k for k in OPS_SURFACE_ONLY + (() if mesh else MESH_ONLY) if launches[k] != 0]
     if stray:
         raise AssertionError(f"{what} launched kernels that are not on its path: {stray}")
+    # a transform is one ntt_block and at most two ntt_stage passes (up to 2^30)
+    if launches["ntt_stage"] > 2 * launches["ntt_block"]:
+        raise AssertionError(f"{what} launched ntt_stage {launches['ntt_stage']} times for "
+                             f"{launches['ntt_block']} transforms")
     unknown = sorted(set(launches) - set(PROVE_PATH_KERNELS) - set(OPS_SURFACE_ONLY) - set(MESH_ONLY))
     if unknown:
         raise AssertionError(f"kernels neither on the prove path nor named ops-surface-only: {unknown}")
@@ -807,8 +857,9 @@ def table_cases(n: int, registers: int) -> tuple:
     e_inv = PRIME - 2
     pow_products = e_inv.bit_length() + bin(e_inv).count("1") - 2
     log_n = n.bit_length() - 1
-    log_block = ntt_kernels.LOG_BLOCK_MAX
-    late = list(range(log_block + 1, log_n + 1))
+    plan = ntt_kernels.pass_plan(log_n)
+    log_block, late = plan[0][1], plan[1:]
+    late_stages = sum(last - s + 1 for s, last in late)
     a, b = edge_words(n, 11), edge_words(n, 12).roll(5, dims=1)
     x = edge_words(n, 13, canonical=True)
     tw = nttmod._twiddles(n, False, "cuda")
@@ -822,9 +873,14 @@ def table_cases(n: int, registers: int) -> tuple:
     msg = torch.cat([t[:, sl] for sl in (slice(0, leaves), slice(leaves, n))
                      for t in (a, b)[:registers]], dim=0)
 
-    def stages(fn, y):
-        for s in late:
-            y = fn(y, tw, s)
+    def passes(y):
+        for s, last in late:
+            ntt_kernels.ntt_stage(y, tw, s, last)
+        return y
+
+    def passes_plain(y):
+        for s, last in late:
+            y = ntt_kernels.ntt_stages_plain(y, tw, s, last)
         return y
 
     blocked = ntt_kernels.ntt_block(x, tw, log_block)
@@ -843,15 +899,18 @@ def table_cases(n: int, registers: int) -> tuple:
                          n, 80 * n, 1, lambda: fk.butterfly(a, b, x)),
         "fp_pow_const": (lambda: fk.pow_const(xp, e_inv), lambda: ft.pow_const(xp, e_inv),
                          pow_products * n_pow, 32 * n_pow, 1),
+        # a pass over stages s..last reads and writes the codeword once and
+        # reads what it needs of the master table once: 2^(k-1) row factors,
+        # k = last - s + 1, and 2^(s-1) column factors (none for ntt_block)
         "ntt_block": (lambda: ntt_kernels.ntt_block(x, tw, log_block),
                       lambda: ntt_kernels.ntt_block_plain(x, tw, log_block),
-                      log_block * (n // 2), 32 * n + 16 * (n // 2), 1),
-        # all late stages run and the time is divided by their number
-        "ntt_stage": (lambda: stages(ntt_kernels.ntt_stage, blocked.clone()),
-                      lambda: stages(ntt_kernels.ntt_stage_plain, blocked),
-                      len(late) * (n // 2),
-                      sum(32 * n + 16 * (1 << (s - 1)) for s in late), len(late),
-                      lambda: stages(ntt_kernels.ntt_stage, scratch)),
+                      log_block * (n // 2), 32 * n + 16 * (1 << (log_block - 1)), 1),
+        # the plan's later passes run and the time is divided by their number
+        "ntt_stage": (lambda: passes(blocked.clone()), lambda: passes_plain(blocked),
+                      late_stages * (n // 2),
+                      sum(32 * n + 16 * ((1 << (last - s)) + (1 << (s - 1))) for s, last in late),
+                      max(len(late), 1),
+                      lambda: passes(scratch)),
         # launched by a prove on a mesh only
         "ntt_grouped": (lambda: ntt_kernels.ntt_grouped(x, tw_g, g),
                         lambda: ntt_kernels.ntt_grouped_plain(x, tw_g, g),
@@ -862,7 +921,8 @@ def table_cases(n: int, registers: int) -> tuple:
     }
     shapes = {name: f"n={n}" for name in cases}
     shapes["fp_pow_const"] = f"n={n_pow} e=p-2"
-    shapes["ntt_stage"] = f"n={n} s={late[0]}..{late[-1]}"
+    shapes["ntt_block"] = f"n={n} s=1..{log_block}"
+    shapes["ntt_stage"] = f"n={n} s=" + ",".join(f"{s}..{last}" for s, last in late)
     shapes["ntt_grouped"] = f"n={n} g={g}"
     shapes["blake2b_planes"] = f"{msg_len} B x {leaves}"
     return cases, shapes
@@ -927,11 +987,25 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None)
             table[-1].update({f"launches_{air}": info["launches"][name] for air, info in airs.items()})
         if mesh:
             table[-1]["launches_mesh"] = mesh["launches"][name]
+    # the whole n-point transform (ntt_block and the ntt_stage passes of
+    # pass_plan) beside the least time the card could take for it
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+    from stark_anatomy_tpu_torch.ops import ntt_kernels
+
+    x = edge_words(n, 13, canonical=True)
+    tw = nttmod._twiddles(n, False, "cuda")
+    transform_ms = time_ms(lambda: ntt_kernels.transform(x, tw), reps=5)
+    log_n = n.bit_length() - 1
+    transform_bound_ms = max(OPS_PER_UNIT["ntt_stage"] * log_n * (n // 2) / INT32_OPS_PER_S,
+                             32 * n / DEVICE_MEMORY_BYTES_PER_S) * 1e3
+    for row in table:
+        if row["name"] in ("ntt_block", "ntt_stage"):
+            row.update(transform_ms=transform_ms, transform_bound_ms=transform_bound_ms,
+                       transform_passes=ntt_kernels.pass_plan(log_n))
     # fp_pow_const is launch-bound at the prove path's shape: its time where
     # the arithmetic shows, beside the operations bound there.
     e_inv = PRIME - 2
     pow_products = e_inv.bit_length() + bin(e_inv).count("1") - 2
-    x = edge_words(n, 13, canonical=True)
     pow_row = next(row for row in table if row["name"] == "fp_pow_const")
     for size in (1 << 20, n):
         y = x[:, :size]
@@ -977,6 +1051,51 @@ def phase_profile(chain: int, out_dir: str | None, warm_prove_s: float) -> None:
                       fh, indent=1)
 
 
+def phase_tune(out_dir: str | None) -> None:
+    """(Only when named in --phases.) Times of the NTT passes at n = 2^20 and
+    2^24 for several cuts of the stages, tile widths and block sizes, launched
+    with explicit values: the readings behind pass_plan, tile_cols and
+    tile_threads in ops/ntt_kernels.py. Times only; the output is not read."""
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+
+    rows = []
+    for log_n, cuts in ((20, [[10, 10], [7, 7, 6], [8, 6, 6], [9, 6, 5]]),
+                        (24, [[8, 8, 8], [10, 7, 7], [9, 8, 7], [8, 9, 7], [6, 9, 9], [10, 10, 4]])):
+        x = edge_words(1 << log_n, 40, canonical=True)
+        tw = nttmod._twiddles(1 << log_n, False, "cuda")
+        y = torch.empty_like(x)
+        table = (tw.data_ptr(), tw.stride(0))
+        for cut in cuts:
+            first = 1
+            for k in cut:
+                last = first + k - 1
+                for log_cols in (2, 3, 4, 5):
+                    if k + log_cols > 13 or (first > 1 and log_cols > first - 1):
+                        continue
+                    for log_threads in (7, 8, 9, 10):
+                        if first == 1:
+                            args = ("ntt_block", x.data_ptr(), x.stride(0), y.data_ptr(), y.stride(0),
+                                    *table, log_n, k, log_cols, log_threads, 0, 0, 0, 0, 0)
+                        else:
+                            args = ("ntt_stage", y.data_ptr(), y.stride(0), *table, log_n, first, last,
+                                    log_cols, log_threads)
+                        rows.append({"log_n": log_n, "cut": cut, "kernel": args[0], "stages": [first, last],
+                                     "log_cols": log_cols, "log_threads": log_threads,
+                                     "ms": round(time_ms(lambda: _build.launch(*args), reps=3), 4)})
+                first = last + 1
+    best = {}
+    for row in rows:
+        key = (row["log_n"], row["kernel"], tuple(row["stages"]))
+        if key not in best or row["ms"] < best[key]["ms"]:
+            best[key] = row
+    emit("tune", gpu=gpu_name_and_limit(), best=list(best.values()))
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "tune.json"), "w") as fh:
+            json.dump({"gpu": gpu_name_and_limit(), "rows": rows}, fh, indent=1)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
     ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full,mesh,dist")
@@ -1000,6 +1119,8 @@ def main() -> int:
         phase_build(args.verbose_build)
     if "kernels" in phases:
         phase_kernels(results)
+    if "tune" in phases:
+        phase_tune(args.out)
     if "golden" in phases:
         phase_golden()
     if "mid" in phases:

@@ -44,8 +44,8 @@ SIGNATURES = {
     "fp_mont_mul": _FP_BINARY,
     "fp_butterfly": [_p, _l, _p, _l, _p, _l, _u, _u, _u, _u, _p, _l, _p, _l, _l, _p],
     "fp_pow_const": [_p, _l, _u, _u, _u, _u, _p, _l, _l, _p],
-    "ntt_block": [_p, _l, _p, _l, _p, _l, _i, _i, _i, _u, _u, _u, _u, _p],
-    "ntt_stage": [_p, _l, _p, _l, _i, _i, _p],
+    "ntt_block": [_p, _l, _p, _l, _p, _l, _i, _i, _i, _i, _i, _u, _u, _u, _u, _p],
+    "ntt_stage": [_p, _l, _p, _l, _i, _i, _i, _i, _i, _p],
     "ntt_grouped": [_p, _l, _p, _l, _p, _l, _l, _i, _i, _u, _u, _u, _u, _p],
     "blake2b_planes": [_p, _l, _i, _i, _p, _l, _l, _p],
 }
