@@ -2,7 +2,7 @@
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
     python3 chip_smoke.py                 # every phase, needs one card
-    python3 chip_smoke.py --phases env,build,kernels --verbose-build
+    python3 chip_smoke.py --phases env,build,kernels --verbose-build   # after a .cu edit
     python3 chip_smoke.py --phases env,build,kernels,mesh
 
 Drives stark_anatomy_tpu_torch only (no JAX anywhere). Phases, each
@@ -27,6 +27,8 @@ exits non-zero:
   full     chain 32765, F = 2^24 (the main path at its real size): launch
            counts reset, cold prove, counts read; warm prove; verify; phase
            split; peak device memory
+  inv      field_kernels.inv alone at the prove's shape (2^24 elements): the
+           launches of one call, device and host time, equal to field_torch.inv
   mesh     the mesh path on the one card (8 shards in one process, so an
            exchange is a permuted copy on the device): the sharded NTT in its
            three layouts for 2, 8 and 128 shards, the sharded LDE and the
@@ -80,13 +82,18 @@ INT32_OPS_PER_S = 33.5e12
 #: word, ~5 carry adds) = 40, plus the conditional subtract's 12, rounded
 #: up to 60 for the negations and carries into the fifth word. A butterfly
 #: is one product, one add, one sub = 84 (ntt_grouped: log2 g stages of n/2
-#: butterflies). fp_pow_const's unit is one
-#: Montgomery product (bits + popcount - 2 of them per element). Blake2b: a G is 6 64-bit adds,
+#: butterflies). The unit of fp_pow_const and fp_batch_inv is one Montgomery
+#: product, counted at the fewest known for the function: a^(p-2) takes
+#: field_torch.INV_CHAIN_PRODUCTS (143) of them per element by the addition
+#: chain (fp_pow_const's windows do field_kernels.pow_products(p - 2) = 169,
+#: in the table beside the bound), and the batch inverse of n elements
+#: 3 (n - 1) + 143 (Montgomery's trick and one chain; fp_batch_inv's design
+#: does about 4.5 per element). Blake2b: a G is 6 64-bit adds,
 #: 4 xors, and rotates by 24, 16 and 63 (the one by 32 is free) at 2
 #: operations each = 26; 96 G per block = 2496.
 OPS_PER_UNIT = {
     "fp_add": 12, "fp_sub": 12, "fp_mont_mul": 60, "fp_butterfly": 84, "fp_pow_const": 60,
-    "ntt_block": 84, "ntt_stage": 84, "ntt_grouped": 84, "blake2b_planes": 2496,
+    "fp_batch_inv": 60, "ntt_block": 84, "ntt_stage": 84, "ntt_grouped": 84, "blake2b_planes": 2496,
 }
 KERNEL_SOURCES = {
     "fp_add": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:140"),
@@ -94,17 +101,25 @@ KERNEL_SOURCES = {
     "fp_mont_mul": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:148"),
     "fp_butterfly": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:152"),
     "fp_pow_const": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:266"),
+    "fp_batch_inv": ("stark_anatomy_tpu_torch/csrc/inv.cu", "stark_anatomy_tpu/ops/field_pallas.py:401"),
     "ntt_block": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:95"),
     "ntt_stage": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:128"),
     "ntt_grouped": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:242"),
     "blake2b_planes": ("stark_anatomy_tpu_torch/csrc/blake2b.cu", "stark_anatomy_tpu/ops/blake2b_pallas.py:68"),
 }
-#: the kernels every Stark.prove launches; fp_butterfly is on the ops surface
-#: only (ntt_stage fuses the same arithmetic in place), so a prove launches
-#: it no time and the kernels phase alone holds it against its plain version.
-PROVE_PATH_KERNELS = ("fp_add", "fp_sub", "fp_mont_mul", "fp_pow_const", "ntt_block", "ntt_stage",
+#: the kernels every Stark.prove launches. fp_butterfly (ntt_stage fuses the
+#: same arithmetic in place) and fp_pow_const (inv's chain runs inside
+#: fp_batch_inv) are on the ops surface only: a prove launches them no time
+#: and the kernels phase and the table hold them against their plain versions.
+PROVE_PATH_KERNELS = ("fp_add", "fp_sub", "fp_mont_mul", "fp_batch_inv", "ntt_block", "ntt_stage",
                       "blake2b_planes")
-OPS_SURFACE_ONLY = ("fp_butterfly",)
+OPS_SURFACE_ONLY = ("fp_butterfly", "fp_pow_const")
+#: most fp_mont_mul launches a cold Rescue-Prime prove at chain 32765 may make
+#: (1234 while inv was scans of products; ~470 since it is fp_batch_inv)
+MONT_MUL_MAX = 600
+#: most fp_batch_inv launches one inv call may make (inv_plan: 5 up to 2^27,
+#: 7 above)
+INV_LAUNCHES_MAX = 8
 #: launched by a prove on a mesh only (the column transforms of the four-step
 #: NTT): no time by a single-device prove, at least once by a mesh prove
 MESH_ONLY = ("ntt_grouped",)
@@ -170,6 +185,16 @@ def edge_words(n: int, seed: int, canonical: bool = False) -> torch.Tensor:
     for i, e in enumerate(edges[: min(len(edges), n)]):
         words[:, i] = [(e >> (32 * j)) & 0xFFFFFFFF for j in range(4)]
     return to_tensor(words, "cuda")
+
+
+def inv_input(n: int, seed: int) -> torch.Tensor:
+    """Canonical (4, n) CUDA planes for inv: edge_words with zeros at both
+    ends and in a run in the middle."""
+    x = edge_words(n, seed, canonical=True)
+    x[:, 0] = 0
+    x[:, n - 1] = 0
+    x[:, n // 2 : n // 2 + min(5, n // 3)] = 0
+    return x
 
 
 # -- phases ------------------------------------------------------------------
@@ -244,11 +269,16 @@ def phase_kernels(results: dict) -> None:
           ft.mont_mul(big[:, :half].contiguous(), big[:, half:].contiguous()))
 
     # pow_const: any 128-bit input (p, p + 1, 2^128 - 1 among the edges),
-    # exponents 0 and 1, the Fermat exponent, one of exactly 128 bits and one
-    # past the four words (walked in 64-bit windows); a strided view; out=a.
+    # exponents 0 and 1, the edges of the 4-bit windows (15, 16, 17), the
+    # Fermat exponent, one of exactly 128 bits, all 128 bits set, seeded
+    # random ones and one past the four words (walked in 64-bit windows); a
+    # strided view; out=a.
+    rng = np.random.default_rng(14)
+    seeded = [int(v) for v in rng.integers(0, 1 << 62, size=3, dtype=np.int64)]
     for n in (1, 1000, 1 << 20):
         a = edge_words(n, 14)
-        for e in (0, 1, 2, 12345, PRIME - 2, 1 << 127, (1 << 128) + 5):
+        for e in (0, 1, 2, 15, 16, 17, 12345, PRIME - 2, 1 << 127, (1 << 128) - 1, seeded[0],
+                  seeded[1] << 64 | seeded[2], (1 << 128) + 5):
             check("fp_pow_const", f"n={n} e={e:#x}", fk.pow_const(a, e), ft.pow_const(a, e))
     want = ft.pow_const(big[:, half:].contiguous(), 12345)
     check("fp_pow_const", "strided view", fk.pow_const(big[:, half:], 12345), want)
@@ -259,11 +289,16 @@ def phase_kernels(results: dict) -> None:
     check("fp_pow_const", "windows + out= view", out[:, :half],
           ft.pow_const(big[:, half:].contiguous(), (1 << 128) + 5))
 
-    # inv: the Fermat power (one fp_pow_const launch) alone and at the base of
-    # the batch scans (fp_mont_mul launches), 0 -> 0.
-    for n in (1000, 1 << 16):
-        a = edge_words(n, 4, canonical=True)
-        check("fp_pow_const+fp_mont_mul", f"inv n={n}", fk.inv(a), ft.inv(a))
+    # inv: fp_batch_inv alone, 0 -> 0: one tile, several, three levels; all
+    # zeros; zeros at both ends and in a run; a strided view.
+    for n in (1, 1000, (1 << 16) + 3):
+        a = inv_input(n, 4)
+        want = ft.inv(a)
+        check("fp_batch_inv", f"n={n}", fk.inv(a), want)
+        zeros = torch.zeros_like(a)
+        check("fp_batch_inv", f"n={n} all zero", fk.inv(zeros), zeros)
+    wide = torch.cat([edge_words(a.shape[1], 10, canonical=True), a], dim=1)
+    check("fp_batch_inv", "strided view", fk.inv(wide[:, a.shape[1]:]), want)
 
     # butterfly: tensor and by-value twiddle, outputs over the inputs.
     for n in (1, 1000, 1 << 20):
@@ -379,6 +414,7 @@ def phase_kernels(results: dict) -> None:
     # phase times them at the main path's shapes)
     n = 1 << 20
     a, b = edge_words(n, 6), edge_words(n, 7)
+    c = inv_input(n, 8)
     tw = nttmod._twiddles(n, False, "cuda")
     tw_g = nttmod._twiddles(MESH_SHARDS, False, "cuda")
     msg = torch.cat([a, b, a, b])
@@ -388,6 +424,7 @@ def phase_kernels(results: dict) -> None:
         "fp_mont_mul": time_ms(lambda: fk.mont_mul(a, b)),
         "fp_butterfly": time_ms(lambda: fk.butterfly(a, b, b)),
         "fp_pow_const": time_ms(lambda: fk.pow_const(a, PRIME - 2)),
+        "fp_batch_inv": time_ms(lambda: fk.inv(c)),
         "ntt_block": time_ms(lambda: ntt_kernels.ntt_block(a, tw, ntt_kernels.LOG_BLOCK_MAX)),
         "ntt_stage": time_ms(lambda: ntt_kernels.ntt_stage(b, tw, 11, 20)),
         "ntt_grouped": time_ms(lambda: ntt_kernels.ntt_grouped(a, tw_g, MESH_SHARDS)),
@@ -648,6 +685,10 @@ def phase_full(chain: int) -> tuple:
     if not accepted:
         raise AssertionError("the full-size proof does not verify")
     require_prove_path(launches, "the main path")
+    if launches["fp_mont_mul"] > MONT_MUL_MAX or launches["fp_batch_inv"] > INV_LAUNCHES_MAX:
+        raise AssertionError(f"the main path launched fp_mont_mul {launches['fp_mont_mul']} times "
+                             f"(at most {MONT_MUL_MAX}) and fp_batch_inv {launches['fp_batch_inv']} "
+                             f"times (at most {INV_LAUNCHES_MAX})")
     if stark.verify(tamper_leaf(cold), boundary):
         raise AssertionError("a tampered full-size proof verified")
 
@@ -667,6 +708,43 @@ def phase_full(chain: int) -> tuple:
     )
     emit("full", **info)
     return info, (trace, boundary, cold)
+
+
+def phase_inv(log_n: int = 24) -> dict:
+    """field_kernels.inv alone at the prove's shape (n = F = 2^24): the
+    launches of one call, device time (CUDA events) and host wall time with a
+    synchronise on both sides, and the result held to field_torch.inv. The
+    phase prints its line before it checks the launches, so that it also
+    times an inv that takes another route (an earlier version of the package)."""
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import field_kernels as fk
+    from stark_anatomy_tpu_torch.ops import field_torch as ft
+
+    n = 1 << log_n
+    x = inv_input(n, 25)
+    torch.cuda.synchronize()
+    _build.reset_launch_counts()
+    y = fk.inv(x)
+    torch.cuda.synchronize()
+    launches = {k: v for k, v in _build.launch_counts().items() if v}
+    equal = torch.equal(y, ft.inv(x))
+    del y
+    ms = time_ms(lambda: fk.inv(x), reps=10)
+    host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fk.inv(x)
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    info = dict(n=n, launches_one_call=launches, ms=ms, host_ms=host_ms, equal=equal)
+    emit("inv", **info)
+    if not equal:
+        raise AssertionError(f"inv at n = {n} differs from field_torch.inv")
+    if set(launches) != {"fp_batch_inv"} or launches["fp_batch_inv"] > INV_LAUNCHES_MAX:
+        raise AssertionError(f"one inv call at n = {n} launched {launches}: expected fp_batch_inv "
+                             f"alone, at most {INV_LAUNCHES_MAX} times")
+    return info
 
 
 def check_sharded_ntt(mesh, x: torch.Tensor, what: str) -> int:
@@ -849,13 +927,11 @@ def table_cases(n: int, registers: int) -> tuple:
     from stark_anatomy_tpu_torch.ops import ntt_kernels
     from stark_anatomy_tpu_torch.ops.field import PRIME
 
-    # the length at which inv's batch scans bottom out in the Fermat power:
-    # the one shape the prove path gives fp_pow_const
-    n_pow = n
-    while n_pow >= fk._BATCH_INV_MIN and n_pow % fk._BATCH_INV_GROUPS == 0:
-        n_pow //= fk._BATCH_INV_GROUPS
+    # fp_pow_const is on the ops surface: held at the shape the prove gave it
+    # while inv's scans bottomed out in a Fermat power (timed at 2^20 and n
+    # besides, in phase_table)
+    n_pow = 1024
     e_inv = PRIME - 2
-    pow_products = e_inv.bit_length() + bin(e_inv).count("1") - 2
     log_n = n.bit_length() - 1
     plan = ntt_kernels.pass_plan(log_n)
     log_block, late = plan[0][1], plan[1:]
@@ -886,19 +962,28 @@ def table_cases(n: int, registers: int) -> tuple:
     blocked = ntt_kernels.ntt_block(x, tw, log_block)
     scratch = blocked.clone()
     xp = x[:, :n_pow].contiguous()
+    xi = inv_input(n, 26)
 
     def both(pair):
         return torch.cat(list(pair), dim=1)
 
+    # (kernel call, plain call, units of work, bytes moved, launches a call
+    # [, {"timed": the call to time when the compared one carries a copy}])
     cases = {
         "fp_add": (lambda: fk.add(a, b), lambda: ft.add(a, b), n, 48 * n, 1),
         "fp_sub": (lambda: fk.sub(a, b), lambda: ft.sub(a, b), n, 48 * n, 1),
         "fp_mont_mul": (lambda: fk.mont_mul(a, b), lambda: ft.mont_mul(a, b), n, 48 * n, 1),
         # launched no time by a prove (ops surface only): held at n = F
         "fp_butterfly": (lambda: both(fk.butterfly(a, b, x)), lambda: both(ft.butterfly(a, b, x)),
-                         n, 80 * n, 1, lambda: fk.butterfly(a, b, x)),
+                         n, 80 * n, 1, {"timed": lambda: fk.butterfly(a, b, x)}),
+        # the least work for a^(p-2) is the 143-product chain, not the
+        # kernel's 169 windowed products
         "fp_pow_const": (lambda: fk.pow_const(xp, e_inv), lambda: ft.pow_const(xp, e_inv),
-                         pow_products * n_pow, 32 * n_pow, 1),
+                         ft.INV_CHAIN_PRODUCTS * n_pow, 32 * n_pow, 1),
+        # the whole call (inv_plan's launches); the least work is one read and
+        # one write an element and Montgomery's 3 (n - 1) products + the chain
+        "fp_batch_inv": (lambda: fk.inv(xi), lambda: ft.inv(xi),
+                         3 * (n - 1) + ft.INV_CHAIN_PRODUCTS, 32 * n, 1),
         # a pass over stages s..last reads and writes the codeword once and
         # reads what it needs of the master table once: 2^(k-1) row factors,
         # k = last - s + 1, and 2^(s-1) column factors (none for ntt_block)
@@ -910,7 +995,7 @@ def table_cases(n: int, registers: int) -> tuple:
                       late_stages * (n // 2),
                       sum(32 * n + 16 * ((1 << (last - s)) + (1 << (s - 1))) for s, last in late),
                       max(len(late), 1),
-                      lambda: passes(scratch)),
+                      {"timed": lambda: passes(scratch)}),
         # launched by a prove on a mesh only
         "ntt_grouped": (lambda: ntt_kernels.ntt_grouped(x, tw_g, g),
                         lambda: ntt_kernels.ntt_grouped_plain(x, tw_g, g),
@@ -928,15 +1013,17 @@ def table_cases(n: int, registers: int) -> tuple:
     return cases, shapes
 
 
-def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None) -> list:
+def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
+                inv: dict | None = None) -> list:
     """Each kernel held against its plain version at the shapes of EVERY
     driven path (the Rescue-Prime prove of the full phase and, where the airs
     phase ran, the Fibonacci and MiMC proves: each path's own FRI domain,
-    Fermat-power length, late NTT stages and leaf width), then timed beside
+    late NTT stages and leaf width), then timed beside
     the plain version at the full phase's shapes; bounds from those sizes.
     `launches` is the full phase's count, for a mesh-only kernel the mesh
     phase's; the airs and mesh phases' counts stand beside it."""
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
+    from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops.field import PRIME
 
     paths = {"rescue_prime": (full["fri_domain"], full["registers"])}
@@ -968,8 +1055,9 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None)
 
     n = main[0]
     table = []
-    for name, (kernel, plain, units, nbytes, per_call, *timed) in cases.items():
-        ms = time_ms(timed[0] if timed else kernel, reps=5) / per_call
+    for name, (kernel, plain, units, nbytes, per_call, *opts) in cases.items():
+        opts = opts[0] if opts else {}
+        ms = time_ms(opts.get("timed", kernel), reps=5) / per_call
         plain_ms = time_ms(plain, reps=1) / per_call
         bytes_ms = nbytes / DEVICE_MEMORY_BYTES_PER_S * 1e3 / per_call
         ops_ms = OPS_PER_UNIT[name] * units / INT32_OPS_PER_S * 1e3 / per_call
@@ -1002,17 +1090,23 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None)
         if row["name"] in ("ntt_block", "ntt_stage"):
             row.update(transform_ms=transform_ms, transform_bound_ms=transform_bound_ms,
                        transform_passes=ntt_kernels.pass_plan(log_n))
-    # fp_pow_const is launch-bound at the prove path's shape: its time where
-    # the arithmetic shows, beside the operations bound there.
+    # fp_pow_const is launch-bound at n = 1024: its time where the
+    # arithmetic shows, beside the operations bound there (the chain's 143
+    # products an element; the kernel's own windowed count stands beside it)
     e_inv = PRIME - 2
-    pow_products = e_inv.bit_length() + bin(e_inv).count("1") - 2
     pow_row = next(row for row in table if row["name"] == "fp_pow_const")
+    pow_row["bound_products_per_element"] = ft.INV_CHAIN_PRODUCTS
+    pow_row["kernel_products_per_element"] = fk.pow_products(e_inv)
     for size in (1 << 20, n):
         y = x[:, :size]
         pow_row[f"ms_n_{size}"] = time_ms(lambda: fk.pow_const(y, e_inv), reps=3)
         pow_row[f"bound_ms_n_{size}"] = max(
-            OPS_PER_UNIT["fp_pow_const"] * pow_products * size / INT32_OPS_PER_S,
+            OPS_PER_UNIT["fp_pow_const"] * ft.INV_CHAIN_PRODUCTS * size / INT32_OPS_PER_S,
             32 * size / DEVICE_MEMORY_BYTES_PER_S) * 1e3
+    inv_row = next(row for row in table if row["name"] == "fp_batch_inv")
+    inv_row["launches_per_call"] = len(fk.inv_plan(n)) * 2 - 1
+    if inv:
+        inv_row["host_ms"] = inv["host_ms"]
     return table
 
 
@@ -1038,7 +1132,8 @@ def phase_profile(chain: int, out_dir: str | None, warm_prove_s: float) -> None:
         raise AssertionError("torch.profiler recorded no device time")
     rows.sort(key=lambda r: -r[1])
     busy_ms = sum(r[1] for r in rows)
-    top = [{"name": k[:80], "device_ms": round(ms, 3), "calls": c} for k, ms, c in rows[:16]]
+    top = [{"name": k[:80], "device_ms": round(ms, 3), "calls": c, "mean_us": round(ms * 1e3 / c, 2)}
+           for k, ms, c in rows[:16]]
     emit("profile", wall_ms_under_profiler=round(wall_ms, 1), device_busy_ms=round(busy_ms, 1),
          warm_prove_ms=round(warm_prove_s * 1e3, 1),
          device_busy_share=round(busy_ms / (warm_prove_s * 1e3), 3), top_device_kernels=top)
@@ -1086,7 +1181,7 @@ def phase_tune(out_dir: str | None) -> None:
                 first = last + 1
     best = {}
     for row in rows:
-        key = (row["log_n"], row["kernel"], tuple(row["stages"]))
+        key = (row["log_n"], row["kernel"], tuple(row.get("stages", ())))
         if key not in best or row["ms"] < best[key]["ms"]:
             best[key] = row
     emit("tune", gpu=gpu_name_and_limit(), best=list(best.values()))
@@ -1098,7 +1193,7 @@ def phase_tune(out_dir: str | None) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full,mesh,dist")
+    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full,inv,mesh,dist")
     ap.add_argument("--verbose-build", action="store_true", help="print ptxas resource usage")
     ap.add_argument("--chain", type=int, default=32765, help="chain length of the full phase")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json / profile.json")
@@ -1129,6 +1224,8 @@ def main() -> int:
     if "resume" in phases:
         phase_resume()
     if "full" not in phases:
+        if "inv" in phases:
+            phase_inv()
         if "mesh" in phases:
             phase_mesh(args.chain)
         if "dist" in phases:
@@ -1136,19 +1233,20 @@ def main() -> int:
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
     full, full_run = phase_full(args.chain)
+    inv = phase_inv() if "inv" in phases else None
     mesh = phase_mesh(args.chain, full_run) if "mesh" in phases else None
     del full_run
     if "dist" in phases:
         phase_dist()
-    table = phase_table(results, full, airs, mesh)
+    table = phase_table(results, full, airs, mesh, inv)
     if "profile" in phases:
         phase_profile(args.chain, args.out, full["warm_prove_s"])
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
-            json.dump({"gpu": gpu_name_and_limit(), "full": full, "airs": airs, "mesh": mesh,
-                       "kernels": table},
+            json.dump({"gpu": gpu_name_and_limit(), "full": full, "inv": inv, "airs": airs,
+                       "mesh": mesh, "kernels": table},
                       fh, indent=1)
     print(json.dumps({"kernels": table}), flush=True)
     print(gpu_name_and_limit(), flush=True)

@@ -88,37 +88,57 @@ __global__ void fp_butterfly_kernel(const uint32_t* even, long even_stride,
   fp::store(lo, lo_stride, i, fp::sub(e, t));
 }
 
-// fp_pow_const. Replaces field_pallas.py `pow_const`, which scans the
+// fp_pow_const. Replaces field_pallas.py `pow_const` (:266), which scans the
 // product kernel over the exponent's bits: two launches and two full passes
 // over device memory per bit. Here the running power never leaves its
-// thread's registers: one read and one write per element whatever the
-// exponent, so the kernel is bound by OPERATIONS (bits + popcount - 2
-// Montgomery products per element; 250 for p - 2). The exponent comes by
-// value as four words and is scanned from bit `top - 1` down (`top` = its
-// bit length, found by the launcher): it is the same for every thread, so no
-// warp diverges. The input is canonicalised first (one conditional subtract)
-// so that every product has a canonical operand and the result is the
-// canonical representative, which is what the LSB-first plain version gives
-// for any 128-bit input. e = 0 gives R mod p (Montgomery one) for every
-// input, 0 included.
-__global__ void fp_pow_const_kernel(const uint32_t* a, long a_stride, fp::Fe e,
-                                    int top, uint32_t* out, long out_stride,
-                                    long n) {
-  const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
+// thread: one read and one write per element whatever the exponent, so the
+// kernel is bound by OPERATIONS, the Montgomery products. Fixed 4-bit windows,
+// most significant first (ops/field_kernels.py `pow_windows`; the C entry
+// counts the digits): a table x^1..x^15 (14 products), then for every window
+// after the top one 4 squarings and, for a non-zero digit, one product from
+// the table. For any e < 2^128 that is at most 14 + 124 + 31
+// = 169 products (169 for p - 2, which took 250 by bits; `inv` uses the
+// 143-product chain of field.cuh instead). The digit is the same for every
+// thread, so no warp diverges. The table lies in shared memory as planes
+// [digit][word][thread]: each thread reads only its own column (no barrier),
+// and a warp's 32 reads of one word are 32 adjacent banks. The input is
+// canonicalised first (one conditional subtract) so that every product has
+// a canonical operand and the result is the canonical representative, which
+// is what the LSB-first plain version gives for any 128-bit input. e = 0
+// gives R mod p (Montgomery one) for every input, 0 included.
+constexpr int kPowThreads = 128;
+
+__global__ void __launch_bounds__(kPowThreads)
+fp_pow_const_kernel(const uint32_t* a, long a_stride, fp::Fe e, int windows, uint32_t* out,
+                    long out_stride, long n) {
+  __shared__ uint32_t table[15][4][kPowThreads];  // x^d at [d - 1]: 30 KB
+  const int t = threadIdx.x;
+  const long i = (long)blockIdx.x * kPowThreads + t;
   if (i >= n) return;
-  fp::Fe r;
-  if (top == 0) {
-    // R mod p = 2^128 - p
-    r.w[0] = 0xFFFFFFFFu;
-    r.w[1] = 0xFFFFFFFFu;
-    r.w[2] = 0xFFFFFFFFu;
-    r.w[3] = 0u - fp::P3 - 1u;
-  } else {
+  fp::Fe r = fp::mont_one();
+  if (windows > 0) {
     const fp::Fe x = fp::cond_sub_p(fp::load(a, a_stride, i), 0u);
-    r = x;
-    for (int bit = top - 2; bit >= 0; --bit) {
-      r = fp::mont_mul(r, r);
-      if ((e.w[bit >> 5] >> (bit & 31)) & 1u) r = fp::mont_mul(r, x);
+    fp::Fe p = x;
+#pragma unroll 1
+    for (int d = 1; d < 16; ++d) {
+      if (d > 1) p = fp::mont_mul(p, x);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) table[d - 1][j][t] = p.w[j];
+    }
+    auto digit = [&e](int w) { return (e.w[w >> 3] >> ((w & 7) * 4)) & 15u; };
+    const unsigned top = digit(windows - 1);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) r.w[j] = table[top - 1][j][t];
+#pragma unroll 1
+    for (int w = windows - 2; w >= 0; --w) {
+      r = fp::sqr_n(r, 4);
+      const unsigned d = digit(w);
+      if (d) {
+        fp::Fe m;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) m.w[j] = table[d - 1][j][t];
+        r = fp::mont_mul(r, m);
+      }
     }
   }
   fp::store(out, out_stride, i, r);
@@ -172,19 +192,12 @@ extern "C" int fp_pow_const(const uint32_t* a, long a_stride, uint32_t e0,
                             uint32_t e1, uint32_t e2, uint32_t e3, uint32_t* out,
                             long out_stride, long n, cudaStream_t stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  const fp::Fe e = make_fe(e0, e1, e2, e3);
-  int top = 0;  // bit length of e
-  for (int j = 3; j >= 0 && top == 0; --j) {
-    for (int b = 31; b >= 0; --b) {
-      if ((e.w[j] >> b) & 1u) {
-        top = 32 * j + b + 1;
-        break;
-      }
-    }
-  }
-  const int threads = 256;
-  const long blocks = (n + threads - 1) / threads;
-  fp_pow_const_kernel<<<(unsigned)blocks, threads, 0, stream>>>(
-      a, a_stride, e, top, out, out_stride, n);
+  const uint32_t ew[4] = {e0, e1, e2, e3};
+  int windows = 0;  // the number of 4-bit digits of e: 0 for e = 0
+  for (int w = 0; w < 32; ++w)
+    if ((ew[w >> 3] >> ((w & 7) * 4)) & 15u) windows = w + 1;
+  const long blocks = (n + kPowThreads - 1) / kPowThreads;
+  fp_pow_const_kernel<<<(unsigned)blocks, kPowThreads, 0, stream>>>(
+      a, a_stride, make_fe(e0, e1, e2, e3), windows, out, out_stride, n);
   return (int)cudaGetLastError();
 }

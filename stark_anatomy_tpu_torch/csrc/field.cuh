@@ -222,4 +222,54 @@ __device__ __forceinline__ Fe mont_mul(const Fe& a, const Fe& b) {
   return cond_sub_p(r, hi);
 }
 
+// Montgomery one, R mod p = 2^128 - p.
+__device__ __forceinline__ Fe mont_one() {
+  Fe r;
+  r.w[0] = 0xFFFFFFFFu;
+  r.w[1] = 0xFFFFFFFFu;
+  r.w[2] = 0xFFFFFFFFu;
+  r.w[3] = 0u - P3 - 1u;
+  return r;
+}
+
+__device__ __forceinline__ Fe sqr_n(Fe x, int n) {
+#pragma unroll 1
+  for (int i = 0; i < n; ++i) x = mont_mul(x, x);
+  return x;
+}
+
+// a^(p-2), Montgomery in and out (0 -> 0), by the addition chain of
+// stark_anatomy_tpu/ops/field_pallas.py `_inv_ladder` (plain copy:
+// ops/field_torch.py `inv_chain`). p - 2 = 407 * 2^119 - 1: run-doubling
+// t_k = a^(2^k - 1) up to t = a^(2^119 - 1), then z = t * a = a^(2^119) and
+// a^(p-2) = z^406 * t. 118 squarings and 25 other products: 143, against 250
+// for square-and-multiply over the bits of p - 2.
+__device__ __forceinline__ Fe inv_chain(const Fe& a) {
+  Fe t = mont_mul(sqr_n(a, 1), a);  // t_2
+  const Fe t2 = t;
+  t = mont_mul(sqr_n(t, 2), t);  // t_4
+  const Fe t4 = t;
+  t = mont_mul(sqr_n(t, 4), t);  // t_8
+  t = mont_mul(sqr_n(t, 8), t);  // t_16
+  const Fe t16 = t;
+  t = mont_mul(sqr_n(t, 16), t);  // t_32
+  const Fe t32 = t;
+  t = mont_mul(sqr_n(t, 32), t);    // t_64
+  t = mont_mul(sqr_n(t, 32), t32);  // t_96
+  t = mont_mul(sqr_n(t, 16), t16);  // t_112
+  t = mont_mul(sqr_n(t, 4), t4);    // t_116
+  t = mont_mul(sqr_n(t, 2), t2);    // t_118
+  t = mont_mul(sqr_n(t, 1), a);     // t_119
+  const Fe z = mont_mul(t, a);
+  // z^406, MSB first over 406 = 0b110010110 (the leading 1 is z itself)
+  Fe r = mont_mul(sqr_n(z, 1), z);  // 1
+  r = sqr_n(r, 2);                  // 0, 0
+  r = mont_mul(sqr_n(r, 1), z);     // 1
+  r = sqr_n(r, 1);                  // 0
+  r = mont_mul(sqr_n(r, 1), z);     // 1
+  r = mont_mul(sqr_n(r, 1), z);     // 1
+  r = sqr_n(r, 1);                  // 0
+  return mont_mul(r, t);
+}
+
 }  // namespace fp

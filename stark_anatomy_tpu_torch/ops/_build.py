@@ -28,7 +28,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("field.cu", "ntt.cu", "blake2b.cu")
+SOURCES = ("field.cu", "inv.cu", "ntt.cu", "blake2b.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -44,6 +44,7 @@ SIGNATURES = {
     "fp_mont_mul": _FP_BINARY,
     "fp_butterfly": [_p, _l, _p, _l, _p, _l, _u, _u, _u, _u, _p, _l, _p, _l, _l, _p],
     "fp_pow_const": [_p, _l, _u, _u, _u, _u, _p, _l, _l, _p],
+    "fp_batch_inv": [_p, _l, _l, _p, _l, _p, _l, _i, _p],
     "ntt_block": [_p, _l, _p, _l, _p, _l, _i, _i, _i, _i, _i, _u, _u, _u, _u, _p],
     "ntt_stage": [_p, _l, _p, _l, _i, _i, _i, _i, _i, _p],
     "ntt_grouped": [_p, _l, _p, _l, _p, _l, _l, _i, _i, _u, _u, _u, _u, _p],

@@ -1,11 +1,11 @@
-"""F_p arithmetic through the CUDA kernels of csrc/field.cu.
+"""F_p arithmetic through the CUDA kernels of csrc/field.cu and csrc/inv.cu.
 
 Counterpart of the JAX package's ops/field_pallas.py. ``add``, ``sub``,
-``mont_mul``, ``butterfly`` and ``pow_const`` launch ``fp_add`` / ``fp_sub``
-/ ``fp_mont_mul`` / ``fp_butterfly`` / ``fp_pow_const`` for CUDA tensors; for
-CPU tensors, and only because the tensor lies on the CPU, they call the plain
-versions in ops/field_torch.py. Nothing falls back: a CUDA tensor either
-launches the kernel or raises.
+``mont_mul``, ``butterfly``, ``pow_const`` and ``inv`` launch ``fp_add`` /
+``fp_sub`` / ``fp_mont_mul`` / ``fp_butterfly`` / ``fp_pow_const`` /
+``fp_batch_inv`` for CUDA tensors; for CPU tensors, and only because the
+tensor lies on the CPU, they call the plain versions in ops/field_torch.py.
+Nothing falls back: a CUDA tensor either launches the kernel or raises.
 
 Operands are ``(4, n) int32`` word planes (ops/limbs.py) whose planes may be
 strided views (e.g. ``cw[:, :half]``) as long as elements within a plane
@@ -13,8 +13,8 @@ are contiguous. Either operand may be a Python int: a raw 128-bit constant,
 passed to the kernel by value (``limbs.mont(v)`` for a field constant).
 ``out=`` writes into an existing tensor or view. ``to_mont`` and
 ``from_mont`` are ``mont_mul`` by a constant. ``inv`` is Montgomery's batch
-inversion built from ``mont_mul`` launches, with the Fermat power a^(p-2) at
-its base: one ``fp_pow_const`` launch on the card.
+inversion in ``fp_batch_inv`` launches alone (csrc/inv.cu), at most 2 L + 1
+of them for the L + 1 levels of ``inv_plan``.
 """
 
 from __future__ import annotations
@@ -23,8 +23,7 @@ import torch
 
 from stark_anatomy_tpu_torch.ops import _build
 from stark_anatomy_tpu_torch.ops import field_torch as ft
-from stark_anatomy_tpu_torch.ops.field import PRIME
-from stark_anatomy_tpu_torch.ops.limbs import R2_MOD_P, R_MOD_P, int_to_words
+from stark_anatomy_tpu_torch.ops.limbs import R2_MOD_P, int_to_words
 
 _PLAIN = {"fp_add": ft.add, "fp_sub": ft.sub, "fp_mont_mul": ft.mont_mul}
 
@@ -116,6 +115,34 @@ def butterfly(even: torch.Tensor, odd: torch.Tensor, tw, out=None):
     return hi, lo
 
 
+#: bits of a window of fp_pow_const
+POW_WINDOW_BITS = 4
+
+
+def pow_windows(exponent: int) -> list:
+    """The 4-bit digits of 0 <= exponent < 2^128, most significant first (none
+    for 0): fp_pow_const's schedule. The kernel takes x^top from its table of
+    x^1..x^15, then for every later digit d squares four times and, if d > 0,
+    multiplies by x^d."""
+    if not 0 <= exponent < (1 << 128):
+        raise ValueError("fp_pow_const takes exponents in [0, 2^128)")
+    digits = []
+    while exponent:
+        digits.append(exponent & ((1 << POW_WINDOW_BITS) - 1))
+        exponent >>= POW_WINDOW_BITS
+    return digits[::-1]
+
+
+def pow_products(exponent: int) -> int:
+    """Montgomery products fp_pow_const does per element for `exponent`: 14
+    for the table, then 4 squarings a window and one product a non-zero digit
+    after the top one."""
+    digits = pow_windows(exponent)
+    if not digits:
+        return 0
+    return 14 + POW_WINDOW_BITS * (len(digits) - 1) + sum(1 for d in digits[1:] if d)
+
+
 def _pow_launch(a: torch.Tensor, exponent: int, out) -> torch.Tensor:
     """One fp_pow_const launch; 0 <= exponent < 2^128."""
     if out is None:
@@ -134,8 +161,9 @@ def pow_const(a: torch.Tensor, exponent: int, out=None) -> torch.Tensor:
 
     exponent 0 gives Montgomery one (R mod p) everywhere, also where a is 0.
     On the card an exponent below 2^128 is ONE launch: the kernel takes it by
-    value as four words. A longer one is walked in 64-bit windows from the
-    top: r = r^(2^64) (one launch), then r = r * a^window."""
+    value as four words and walks its 4-bit windows (``pow_windows``). A
+    longer one is walked in 64-bit windows from the top: r = r^(2^64) (one
+    launch), then r = r * a^window."""
     if exponent < 0:
         raise ValueError("negative exponents: use inv() then pow_const")
     _build.check_planes(a, 4, "fp_pow_const.a")
@@ -161,60 +189,78 @@ def pow_const(a: torch.Tensor, exponent: int, out=None) -> torch.Tensor:
     return r if out is None else out.copy_(r)
 
 
-def _inv_ladder(a: torch.Tensor) -> torch.Tensor:
-    """Fermat inverse a^(p-2), canonical; 0 maps to 0. ONE fp_pow_const
-    launch on the card."""
-    return pow_const(a, PRIME - 2)
+#: elements a thread of fp_batch_inv takes (K) and threads a block (B): a
+#: block's tile is K * B elements. The kernel is built for these two numbers
+#: (csrc/inv.cu `K`, `B`); 4 x 128 was the fastest of K in {4, 8, 16} x B in
+#: {64, 128, 256} at n = 2^24 on an H100 (PERF.md): small tiles keep more
+#: blocks resident for the serial product chains of each thread and of the
+#: block's tree.
+INV_PER_THREAD = 4
+INV_THREADS = 128
 
 
-#: number of groups of the batched inversion's scans.
-_BATCH_INV_GROUPS = 128
-#: below this length the Fermat power beats the scans' 3 * 128 launches.
-_BATCH_INV_MIN = 1 << 14
+def inv_plan(n: int, per_thread: int = INV_PER_THREAD, threads: int = INV_THREADS) -> list:
+    """Lengths of the levels of fp_batch_inv for n elements: level 0 is the
+    input, level l + 1 holds the products of level l's tiles of
+    per_thread * threads elements, and the last fits one tile. A call launches
+    the up phase on every level but the last, the base on the last, and the
+    down phase back to level 0: 2 * len - 1 launches (5 at n = 2^24:
+    [2^24, 32768, 64])."""
+    if n < 1:
+        raise ValueError("inv of an empty batch")
+    tile = per_thread * threads
+    levels = [n]
+    while levels[-1] > tile:
+        levels.append(-(-levels[-1] // tile))
+    return levels
 
 
-def _batch_inv_nonzero(a: torch.Tensor) -> torch.Tensor:
-    """Montgomery's batch inversion of an array with NO zeros: ~3 full-size
-    passes instead of the Fermat power's 250 products.
+def inv_tile_index(first: int, k, t, threads: int = INV_THREADS):
+    """Element of a level that thread t of the tile starting at `first` takes
+    at step k: thread t owns first + k * threads + t, so a warp's loads are
+    adjacent; the products run thread-major (t, then k)."""
+    return first + k * threads + t
 
-    The n elements are cut into G contiguous chunks of m = n/G. A forward
-    scan over the chunks builds, per lane, the exclusive prefix products
-    and the lane totals; the m totals are inverted recursively (ladder at
-    the base); a backward scan with carry c_k = (x_0..x_k)^-1 emits
-    x_k^-1 = c_k * prefix_k and steps c_{k-1} = c_k * x_k. Chunks are
-    column slices, so no transposes: the kernels take strided planes. A
-    unit's inverse is unique and every product is canonical, so the result
-    equals the ladder's bit for bit."""
-    n = a.shape[1]
-    g = _BATCH_INV_GROUPS
-    if n < _BATCH_INV_MIN or n % g:
-        return _inv_ladder(a)
-    m = n // g
-    excl = torch.empty_like(a)  # chunk k: product of chunks 0..k-1
-    run = a[:, :m]
-    for k in range(1, g):
-        excl[:, k * m : (k + 1) * m].copy_(run)
-        run = mont_mul(run, a[:, k * m : (k + 1) * m])
-    carry = _batch_inv_nonzero(run.contiguous())
-    out = torch.empty_like(a)
-    for k in range(g - 1, 0, -1):
-        sl = slice(k * m, (k + 1) * m)
-        mont_mul(carry, excl[:, sl], out=out[:, sl])
-        carry = mont_mul(carry, a[:, sl])
-    out[:, :m].copy_(carry)
+
+def _batch_inv(a: torch.Tensor) -> torch.Tensor:
+    """fp_batch_inv over the levels of inv_plan: up, base, down. The
+    products of the tiles of every level above 0 share one scratch tensor;
+    the base and down phases there write the inverses over them."""
+    levels = inv_plan(a.shape[1])
+    out = torch.empty((4, levels[0]), dtype=torch.int32, device=a.device)
+    scratch = torch.empty((4, max(sum(levels[1:]), 1)), dtype=torch.int32, device=a.device)
+    bufs = [a]
+    for m in levels[1:]:
+        off = sum(b.shape[1] for b in bufs[1:])
+        bufs.append(scratch[:, off : off + m])
+    outs = [out] + bufs[1:]
+
+    def phase(p: int, level: int) -> None:
+        x, y = bufs[level], outs[level]
+        above = bufs[level + 1] if level + 1 < len(bufs) else None
+        _build.launch(
+            "fp_batch_inv", x.data_ptr(), x.stride(0), x.shape[1],
+            None if above is None else above.data_ptr(), 0 if above is None else above.stride(0),
+            y.data_ptr(), y.stride(0), p,
+        )
+
+    with torch.cuda.device(a.device):
+        for level in range(len(levels) - 1):
+            phase(0, level)
+        phase(1, len(levels) - 1)
+        for level in range(len(levels) - 2, -1, -1):
+            phase(2, level)
     return out
 
 
 def inv(a: torch.Tensor) -> torch.Tensor:
-    """Batched field inverse, Montgomery form; 0 maps to 0.
+    """Batched field inverse, Montgomery form in and out; 0 maps to 0.
 
-    Long arrays take the batch-inversion scans (zeros masked to 1 on the way
-    in and back to 0 on the way out) down to a base of fewer than 2^14
-    elements, which like a short array takes the Fermat power directly."""
+    On the card: Montgomery's batch inversion in fp_batch_inv launches only
+    (``inv_plan``; the 143-product chain at its base), any n. Inputs are
+    canonical, as on the prove path: only the word pattern 0 is taken for 0.
+    On the CPU: the plain Fermat power ``field_torch.inv``."""
     _build.check_planes(a, 4, "inv.a")
-    n = a.shape[1]
-    if n < _BATCH_INV_MIN or n % _BATCH_INV_GROUPS:
-        return _inv_ladder(a)
-    is_zero = (a == 0).all(dim=0, keepdim=True)
-    a1 = torch.where(is_zero, ft.const_column(R_MOD_P, a), a)
-    return torch.where(is_zero, torch.zeros_like(a), _batch_inv_nonzero(a1))
+    if a.device.type != "cuda":
+        return ft.inv(a)
+    return _batch_inv(a)

@@ -193,6 +193,37 @@ def inv(a: torch.Tensor, a_is_mont: bool = True) -> torch.Tensor:
     return pow_const(a, PRIME - 2, a_is_mont=a_is_mont)
 
 
+#: Montgomery products of ``inv_chain``: the fewest known for a^(p-2)
+INV_CHAIN_PRODUCTS = 143
+
+
+def inv_chain(a: torch.Tensor) -> torch.Tensor:
+    """a^(p-2), Montgomery in and out, 0 -> 0, by the addition chain that
+    fp_batch_inv runs at its base (csrc/field.cuh ``inv_chain``, after the JAX
+    package's ``field_pallas._inv_ladder``): with t_k = a^(2^k - 1) built by
+    run-doubling up to t_119 and z = t_119 * a = a^(2^119),
+    a^(p-2) = a^(407 * 2^119 - 1) = z^406 * t_119. 143 products."""
+
+    def sqr_n(x, n):
+        for _ in range(n):
+            x = mont_mul(x, x)
+        return x
+
+    t, saved = a, {1: a}
+    for k in (1, 2, 4, 8, 16, 32):  # t_2k = t_k^(2^k) * t_k
+        t = mont_mul(sqr_n(t, k), t)
+        saved[2 * k] = t
+    for k in (32, 16, 4, 2, 1):  # 64 + 32 + 16 + 4 + 2 + 1 = 119
+        t = mont_mul(sqr_n(t, k), saved[k])
+    z = mont_mul(t, a)
+    r = z  # z^406, MSB first over 0b110010110 (the leading 1 is z)
+    for bit in (1, 0, 0, 1, 0, 1, 1, 0):
+        r = mont_mul(r, r)
+        if bit:
+            r = mont_mul(r, z)
+    return mont_mul(r, t)
+
+
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Boolean batch mask: a == b word-wise (same form, canonical)."""
     return (a == b).all(dim=0)

@@ -30,6 +30,26 @@ def test_every_kernel_equals_its_plain_version(card):
     assert results and all(r["max_abs_err"] == 0 for r in results.values())
 
 
+@pytest.mark.parametrize("n", [1, 1000, 2048, 2049, (1 << 16) + 3])
+def test_inv_is_fp_batch_inv_alone_and_equals_its_plain_version(card, n):
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import field_kernels as fk
+    from stark_anatomy_tpu_torch.ops import field_torch as ft
+
+    a = chip_smoke.inv_input(n, 3)
+    _build.reset_launch_counts()
+    got = fk.inv(a)
+    torch.cuda.synchronize()
+    counts = {k: v for k, v in _build.launch_counts().items() if v}
+    assert counts == {"fp_batch_inv": 2 * len(fk.inv_plan(n)) - 1}
+    assert torch.equal(got, ft.inv(a))
+    assert torch.equal(fk.inv(torch.zeros_like(a)), torch.zeros_like(a))
+
+
+def test_inv_at_the_prove_shape(card):
+    chip_smoke.phase_inv(log_n=20)
+
+
 def test_golden_proof_bytes_through_the_kernels(card):
     chip_smoke.phase_golden()
 

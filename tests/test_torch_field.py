@@ -220,10 +220,14 @@ def test_inv_ladder_matches_fermat_and_field_jnp_and_maps_zero_to_zero():
 
 
 def test_inv_batch_branch_equals_ladder_with_zeros():
+    # the card's route (fp_batch_inv over inv_plan's levels, the 143-product
+    # chain at its base) on the plain ops, against fk.inv's CPU route (Fermat)
+    from test_torch_inv import model_batch_inv
+
     n = 1 << 14
-    assert n >= fk._BATCH_INV_MIN and n % fk._BATCH_INV_GROUPS == 0
+    assert fk.inv_plan(n) == [n, n // (fk.INV_PER_THREAD * fk.INV_THREADS)]
     a = to_tensor(_words(7, n, True), "cpu")  # EDGES_CANON puts a 0 at index 7
     a[:, 5000] = 0
     got = fk.inv(a)
-    assert torch.equal(got, fk._inv_ladder(a))
+    assert torch.equal(got, model_batch_inv(a, fk.INV_PER_THREAD, fk.INV_THREADS))
     assert not got[:, 7].any() and not got[:, 5000].any()

@@ -56,7 +56,7 @@ def test_kernel_sources_ship_with_the_package():
     for name in _build.SOURCES + _build.HEADERS:
         assert os.path.exists(os.path.join(_build.CSRC, name)), name
     assert set(_build.SIGNATURES) == set(_build.LAUNCHES) == {
-        "fp_add", "fp_sub", "fp_mont_mul", "fp_butterfly", "fp_pow_const",
+        "fp_add", "fp_sub", "fp_mont_mul", "fp_butterfly", "fp_pow_const", "fp_batch_inv",
         "ntt_block", "ntt_stage", "ntt_grouped", "blake2b_planes"}
 
 
