@@ -31,17 +31,26 @@ exits non-zero:
            launches of one call, device and host time, equal to field_torch.inv
   mesh     the mesh path on the one card (8 shards in one process, so an
            exchange is a permuted copy on the device): the sharded NTT in its
-           three layouts for 2, 8 and 128 shards, the sharded LDE and the
+           three layouts for 2, 8, 128 and 256 shards (256: the column
+           transforms one ntt_block a column), the sharded LDE and the
            sharded pair-leaf commit against their single-device versions, and
            chain 32765 through Stark(mesh=make_mesh(8)): the bytes of the
            full phase's proof, cold and warm beside a single-device prove;
            a small run on cuda and on cpu, bytes identical
   dist     the same sharded NTT through a one-process torch.distributed
-           group (nccl): the process-group branch of the exchange
+           group (nccl): the process-group branch of the exchange; then
+           chain 32765 through Stark(mesh=make_mesh(8, group=...)), the
+           block-local prover that W processes run, here with W = 1: the
+           bytes of the full phase's proof, verifies, cold and warm prove,
+           phase split, exchanges, launches, peak device memory
   tune     (only when named in --phases) the NTT passes timed over cuts of
            the stages, tile widths and block sizes
   profile  (only when named in --phases) one warm full-size prove under
            torch.profiler: device time by kernel name, device busy share
+
+With "full" but without "kernels" in --phases (the F = 2^27 measurement,
+``--phases env,build,full --chain 262141``) the script stops after the
+proves, without the kernel table.
 
 Then the kernel table (one JSON object: per kernel its launches on the main
 path, error against the plain version, time at the main path's shape, the
@@ -778,8 +787,19 @@ def check_sharded_ntt(mesh, x: torch.Tensor, what: str) -> int:
     return done
 
 
+def full_inputs(chain: int, full_run: tuple | None) -> tuple:
+    """(trace, boundary, proof) of the full phase, or made here the same way
+    when that phase did not run."""
+    if full_run is not None:
+        return full_run
+    rp, air, single = rescue_setup(chain, 16, "cuda")
+    trace = rp.trace_bytes(11, chain)
+    boundary = air.boundary_constraints(int.from_bytes(trace[-1, 0].tobytes(), "little"))
+    return trace, boundary, single.prove(trace, boundary, randomizer_seed=b"full-v1")
+
+
 def phase_mesh(chain: int = 32765, full_run: tuple | None = None, log_n: int = 20,
-               shard_counts: tuple = (2, 8, 128)) -> dict:
+               shard_counts: tuple = (2, 8, 128, 256)) -> dict:
     """The mesh path on the one card: MESH_SHARDS shards in one process."""
     from stark_anatomy_tpu_torch.iop.merkle import commit_columns
     from stark_anatomy_tpu_torch.iop.stark import Stark
@@ -820,12 +840,7 @@ def phase_mesh(chain: int = 32765, full_run: tuple | None = None, log_n: int = 2
 
     # (d) the path at full width: Stark on the mesh, the full phase's inputs
     rp, air, single = rescue_setup(chain, 16, "cuda")
-    if full_run is None:
-        trace = rp.trace_bytes(11, chain)
-        boundary = air.boundary_constraints(int.from_bytes(trace[-1, 0].tobytes(), "little"))
-        want_proof = single.prove(trace, boundary, randomizer_seed=b"full-v1")
-    else:
-        trace, boundary, want_proof = full_run
+    trace, boundary, want_proof = full_inputs(chain, full_run)
     sharded = Stark(air, expansion_factor=4, num_colinearity_checks=16, mesh=mesh)
 
     def prove(stark) -> tuple:
@@ -892,26 +907,76 @@ def phase_mesh(chain: int = 32765, full_run: tuple | None = None, log_n: int = 2
     return info
 
 
-def phase_dist(log_n: int = 20) -> None:
-    """The sharded NTT through a torch.distributed group of this one process
-    (nccl): the process-group branch of Mesh.all_to_all on the card."""
+def phase_dist(chain: int = 32765, full_run: tuple | None = None, log_n: int = 20) -> dict:
+    """Through a torch.distributed group of this one process (nccl): the
+    sharded NTT (the process-group branch of Mesh.all_to_all on the card),
+    then the block-local prove that W processes run, here at W = 1, on the
+    full phase's inputs: its bytes, cold and warm times, phase split,
+    exchanges, launches and peak device memory."""
     import tempfile
 
+    from stark_anatomy_tpu_torch.iop.stark import Stark
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
     from stark_anatomy_tpu_torch.parallel import distributed, make_mesh
+    from stark_anatomy_tpu_torch.utils import telemetry
 
+    rp, air, _ = rescue_setup(chain, 16, "cuda")
+    trace, boundary, want_proof = full_inputs(chain, full_run)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_dist_") as d:
         if not distributed.init("file://" + os.path.join(d, "store"), 1, 0, device="cuda"):
             raise AssertionError("distributed.init did not initialise a process group")
-        mesh = make_mesh(MESH_SHARDS, group=distributed.world_group())
-        if mesh.world != 1 or mesh.group is None:
-            raise AssertionError("expected a one-process group")
-        # a mesh with a group exchanges through all_to_all_single, also when
-        # the group is this process alone
-        x = edge_words(1 << log_n, 24, canonical=True)
-        done = check_sharded_ntt(mesh, x, "sharded_ntt over a process group")
-        backend = torch.distributed.get_backend(mesh.group)
-        torch.distributed.destroy_process_group()
-    emit("dist", backend=backend, processes=1, shards=MESH_SHARDS, sharded_transforms_equal=done)
+        try:
+            mesh = make_mesh(MESH_SHARDS, group=distributed.world_group())
+            if mesh.world != 1 or mesh.group is None:
+                raise AssertionError("expected a one-process group")
+            # a mesh with a group exchanges through all_to_all_single, also when
+            # the group is this process alone
+            x = edge_words(1 << log_n, 24, canonical=True)
+            done = check_sharded_ntt(mesh, x, "sharded_ntt over a process group")
+            backend = torch.distributed.get_backend(mesh.group)
+            del x
+
+            stark = Stark(air, expansion_factor=4, num_colinearity_checks=16, mesh=mesh)
+            block = stark.fri_domain_length // mesh.world
+
+            def prove() -> tuple:
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                proof = stark.prove(trace, boundary, randomizer_seed=b"full-v1")
+                torch.cuda.synchronize()
+                return proof, time.perf_counter() - t
+
+            nttmod.clear_twiddle_cache()  # cold = no twiddle or cross table cached
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _build.reset_launch_counts()
+            exchanges = mesh.exchanges
+            cold, cold_s = prove()
+            launches = _build.launch_counts()
+            exchanges = mesh.exchanges - exchanges
+            peak = torch.cuda.max_memory_allocated()
+            require_prove_path(launches, "the group prove", mesh=True)
+            if cold != want_proof:
+                raise AssertionError("the group prove's bytes differ from the full phase's proof")
+            if not stark.verify(cold, boundary):
+                raise AssertionError("the group prove's proof does not verify")
+            telemetry.reset()
+            warm, warm_s = prove()
+            split = {k: round(v["seconds"], 4) for k, v in telemetry.report().items()}
+            if warm != cold:
+                raise AssertionError("two group proves with one seed differ")
+        finally:
+            torch.distributed.destroy_process_group()
+    info = dict(
+        backend=backend, processes=1, shards=MESH_SHARDS, sharded_transforms_equal=done,
+        chain=chain, fri_domain=stark.fri_domain_length, block_columns=block,
+        proof_bytes=len(cold), equals_full_proof=True, verifies=True, cold_prove_s=round(cold_s, 3),
+        warm_prove_s=round(warm_s, 3), exchanges_per_prove=exchanges, launches=launches,
+        phase_split_warm_s=split, peak_device_bytes=peak,
+    )
+    emit("dist", **info)
+    return info
 
 
 def table_cases(n: int, registers: int) -> tuple:
@@ -1014,14 +1079,14 @@ def table_cases(n: int, registers: int) -> tuple:
 
 
 def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
-                inv: dict | None = None) -> list:
+                inv: dict | None = None, dist: dict | None = None) -> list:
     """Each kernel held against its plain version at the shapes of EVERY
     driven path (the Rescue-Prime prove of the full phase and, where the airs
     phase ran, the Fibonacci and MiMC proves: each path's own FRI domain,
     late NTT stages and leaf width), then timed beside
     the plain version at the full phase's shapes; bounds from those sizes.
     `launches` is the full phase's count, for a mesh-only kernel the mesh
-    phase's; the airs and mesh phases' counts stand beside it."""
+    phase's; the airs, mesh and dist phases' counts stand beside it."""
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
     from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops.field import PRIME
@@ -1075,6 +1140,8 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
             table[-1].update({f"launches_{air}": info["launches"][name] for air, info in airs.items()})
         if mesh:
             table[-1]["launches_mesh"] = mesh["launches"][name]
+        if dist:
+            table[-1]["launches_dist"] = dist["launches"][name]
     # the whole n-point transform (ntt_block and the ntt_stage passes of
     # pass_plan) beside the least time the card could take for it
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
@@ -1229,16 +1296,18 @@ def main() -> int:
         if "mesh" in phases:
             phase_mesh(args.chain)
         if "dist" in phases:
-            phase_dist()
+            phase_dist(args.chain)
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
     full, full_run = phase_full(args.chain)
     inv = phase_inv() if "inv" in phases else None
     mesh = phase_mesh(args.chain, full_run) if "mesh" in phases else None
+    dist = phase_dist(args.chain, full_run) if "dist" in phases else None
     del full_run
-    if "dist" in phases:
-        phase_dist()
-    table = phase_table(results, full, airs, mesh, inv)
+    if "kernels" not in phases:
+        emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
+        return 0
+    table = phase_table(results, full, airs, mesh, inv, dist)
     if "profile" in phases:
         phase_profile(args.chain, args.out, full["warm_prove_s"])
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
@@ -1246,7 +1315,7 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump({"gpu": gpu_name_and_limit(), "full": full, "inv": inv, "airs": airs,
-                       "mesh": mesh, "kernels": table},
+                       "mesh": mesh, "dist": dist, "kernels": table},
                       fh, indent=1)
     print(json.dumps({"kernels": table}), flush=True)
     print(gpu_name_and_limit(), flush=True)

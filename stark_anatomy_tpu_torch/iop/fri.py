@@ -16,9 +16,12 @@ Szepieniec's "Anatomy of a STARK"), same transcript:
 - the Fiat-Shamir transcript, index sampling, colinearity checks and path
   verification are host-side exact integer work;
 - with ``mesh`` (parallel/mesh.py) every device commit is the sharded one
-  (parallel/merkle_sharded.py); folds stay whole-tensor math, so the mesh
-  must live in one process. Proof bytes do not depend on the mesh and the
-  verifier never looks at it;
+  (parallel/merkle_sharded.py). A mesh with a process group spreads the
+  codeword over its W processes: each holds its (4, n/W) block, a fold
+  brings its row pairs with one exchange (``pair_exchange``), the host tail
+  starts from the gathered codeword on every process, and the queries read
+  the blocks through one ``owner_gather``. Proof bytes do not depend on the
+  mesh and the verifier never looks at it;
 - with ``checkpoint_dir`` every committed round's standard-form codeword is
   snapshotted (utils/checkpoint.py, stage ``fri-r{r}``), host-tail rounds
   included, and a later call replays the completed rounds from disk.
@@ -41,6 +44,7 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from stark_anatomy_tpu_torch import native
 from stark_anatomy_tpu_torch.iop.merkle import (
@@ -63,8 +67,6 @@ from stark_anatomy_tpu_torch.ops.field import (
 from stark_anatomy_tpu_torch.ops.limbs import (
     ints_to_words,
     mont,
-    to_numpy,
-    to_tensor,
     words_to_ints,
 )
 from stark_anatomy_tpu_torch.utils import checkpoint
@@ -79,13 +81,9 @@ from stark_anatomy_tpu_torch.utils.encoding import (
     nonce_to_item,
     pow_digest_ok,
 )
-from stark_anatomy_tpu_torch.parallel.merkle_sharded import commit_sharded
+from stark_anatomy_tpu_torch.parallel.merkle_sharded import commit_sharded, pair_exchange
+from stark_anatomy_tpu_torch.parallel.mesh import block_start, holds_blocks, host_gather, upload_block
 from stark_anatomy_tpu_torch.utils.telemetry import phase as _tphase
-
-#: where the prover for a mesh spread over several processes is queued
-MULTI_PROCESS_PROVE = ("proving on a mesh spread over several processes is not implemented: "
-                       "ROADMAP.md queue 1 item 5b (multi-process Stark.prove); the sharded NTT, LDE "
-                       "and commit of stark_anatomy_tpu_torch.parallel do take such a mesh")
 
 
 def commit(columns, mesh=None, pair: bool = True) -> MerkleTree:
@@ -96,16 +94,40 @@ def commit(columns, mesh=None, pair: bool = True) -> MerkleTree:
     return commit_sharded(columns, mesh, pair=pair)
 
 
-def fold(codeword_mont: torch.Tensor, alpha: int, offset: int, omega: int) -> torch.Tensor:
+def snapshot(directory: str, stage: str, items: list, arrays: dict, meta: dict, mesh=None) -> None:
+    """checkpoint.save of host arrays and device tensors. Under a mesh with
+    a group the tensors are blocks: every process joins their gather, the
+    group's first process alone writes (distributed.is_controller() for the
+    world group), and all wait for the files at a barrier. The files are
+    those a single-process prove writes."""
+    host = {k: v if isinstance(v, np.ndarray) else host_gather(v, mesh) for k, v in arrays.items()}
+    if not holds_blocks(mesh):
+        checkpoint.save(directory, stage, items, host, meta)
+        return
+    if mesh.rank == 0:
+        checkpoint.save(directory, stage, items, host, meta)
+    dist.barrier(group=mesh.group)
+
+
+def fold(codeword_mont: torch.Tensor, alpha: int, offset: int, omega: int, mesh=None) -> torch.Tensor:
     """One FRI fold. codeword: (4, n) Montgomery form on offset*<omega>.
 
     Returns the length-n/2 codeword of the alpha-combined even/odd parts,
-    living on the squared domain offset^2 * <omega^2>."""
-    n = codeword_mont.shape[-1]
-    half = n // 2
-    lo, hi = codeword_mont[:, :half], codeword_mont[:, half:]
+    living on the squared domain offset^2 * <omega^2>. Under a mesh with a
+    group the codeword is this process's (4, n/W) block and so is the
+    result: pair_exchange brings rows i and i + n/2 of the output block's
+    rows, and the inverse domain starts at the block's first row."""
+    if holds_blocks(mesh):
+        pairs = pair_exchange(codeword_mont, mesh)
+        half = pairs.shape[1]
+        lo, hi = pairs[:4], pairs[4:]
+        start = block_start(half * mesh.world, mesh)
+    else:
+        half = codeword_mont.shape[-1] // 2
+        lo, hi = codeword_mont[:, :half], codeword_mont[:, half:]
+        start = 0
     # d_i^-1 = offset^-1 * omega^-i, then alpha / d_i.
-    inv_dom = nttmod.powers(finv(omega), half, codeword_mont.device)
+    inv_dom = nttmod.powers(finv(omega), half, codeword_mont.device, start=start)
     au = fk.mont_mul(inv_dom, mont(alpha * finv(offset)))
     t = fk.add(
         fk.mont_mul(fk.add(au, mont(1)), lo),
@@ -130,7 +152,8 @@ class Fri:
     grinding_bits: proof-of-work bits ground into the transcript before
     query sampling (0 = no pow item); host_tail_n: codewords of at most this
     length finish on the host (it changes no transcript byte); mesh: an
-    optional single-process parallel.Mesh for the commits.
+    optional parallel.Mesh for the commits; with a process group, prove
+    takes this process's block of the codeword.
     """
 
     offset: int
@@ -191,23 +214,27 @@ class Fri:
         """Commit + query phases. Returns the top-level query indices.
 
         codeword_mont: (4, domain_length) Montgomery-form codeword to be
-        proven close to degree < domain_length / expansion_factor.
+        proven close to degree < domain_length / expansion_factor (under a
+        mesh with a group: this process's (4, domain_length / W) block).
 
         checkpoint_dir / checkpoint_meta: when set, each committed round's
         standard-form codeword is snapshotted; a rerun with the same meta
         replays the completed rounds from disk. Trees are re-hashed from the
         stored codewords (commitment is deterministic), so resume skips every
         completed fold and produces a byte-identical transcript."""
-        if self.mesh is not None and self.mesh.world > 1:
-            raise NotImplementedError(MULTI_PROCESS_PROVE)
-        if codeword_mont.shape[-1] != self.domain_length:
+        mesh = self.mesh
+        world = mesh.world if holds_blocks(mesh) else 1
+        if codeword_mont.shape[-1] * world != self.domain_length:
             raise ValueError("codeword length != configured domain length")
         checkpoint_meta = checkpoint_meta or {}
         rounds = self.num_rounds
         omega, offset = self.omega, self.offset
+        device = codeword_mont.device
 
-        # Per round: the committed codeword in standard form (a tensor, or a
-        # (4, n) numpy array once on the host tail) and its tree.
+        # Per round: the committed codeword in standard form (a tensor, this
+        # process's block under a group; or a whole (4, n) numpy array once
+        # on the host tail) and its tree. `codeword` is the next round's
+        # input: a Montgomery tensor, or standard host ints on the tail.
         codewords: List = []
         trees: List[MerkleTree] = []
         codeword = codeword_mont
@@ -226,12 +253,13 @@ class Fri:
                 snaps.append(snap["arrays"]["codeword"])
             resume_from = len(snaps)
             for r, words in enumerate(snaps):
-                if words.shape[-1] <= self.host_tail_n:
+                on_host = self._on_host(words.shape[-1], world)
+                if on_host:
                     standard = words
                     tree = self._commit_host([int(v) for v in words_to_ints(words)])
                 else:
-                    standard = to_tensor(words, codeword_mont.device)
-                    tree = commit([standard], self.mesh)
+                    standard = upload_block(words, mesh, device)
+                    tree = commit([standard], mesh)
                 codewords.append(standard)
                 trees.append(tree)
                 proof_stream.push({"fri_root": digest_to_item(tree.root)})
@@ -239,34 +267,37 @@ class Fri:
                     break
                 alpha = sample_field_element(proof_stream.prover_fiat_shamir())
                 if r == resume_from - 1:
-                    if not isinstance(standard, torch.Tensor):
-                        standard = to_tensor(words, codeword_mont.device)
-                    codeword = fold(fk.to_mont(standard), alpha, offset, omega)
+                    if on_host:
+                        codeword = native.fri_fold_values([int(v) for v in words_to_ints(words)],
+                                                          alpha, finv(offset), finv(omega))
+                    else:
+                        codeword = fold(fk.to_mont(standard), alpha, offset, omega, mesh)
                 omega = omega * omega % PRIME
                 offset = offset * offset % PRIME
         for r in range(resume_from, rounds):
-            if codeword.shape[-1] <= self.host_tail_n:
+            if isinstance(codeword, list) or self._on_host(codeword.shape[-1] * world, world):
+                if isinstance(codeword, torch.Tensor):
+                    codeword = [int(v) for v in words_to_ints(host_gather(fk.from_mont(codeword), mesh))]
                 with _tphase("host-tail"):
                     self._host_tail(codeword, r, rounds, omega, offset, codewords, trees,
-                                    proof_stream, checkpoint_dir, checkpoint_meta)
+                                    proof_stream, checkpoint_dir, checkpoint_meta, mesh)
                 break
             standard = fk.from_mont(codeword)
-            tree = commit([standard], self.mesh)
+            tree = commit([standard], mesh)
             if checkpoint_dir is not None:
-                checkpoint.save(checkpoint_dir, f"fri-r{r}", [],
-                                {"codeword": to_numpy(standard)}, checkpoint_meta)
+                snapshot(checkpoint_dir, f"fri-r{r}", [], {"codeword": standard}, checkpoint_meta, mesh)
             codewords.append(standard)
             trees.append(tree)
             proof_stream.push({"fri_root": digest_to_item(tree.root)})
             if r == rounds - 1:
                 break
             alpha = sample_field_element(proof_stream.prover_fiat_shamir())
-            codeword = fold(codeword, alpha, offset, omega)
+            codeword = fold(codeword, alpha, offset, omega, mesh)
             omega = omega * omega % PRIME
             offset = offset * offset % PRIME
 
         last = codewords[-1]
-        last_values = words_to_ints(last if isinstance(last, np.ndarray) else to_numpy(last))
+        last_values = words_to_ints(last if isinstance(last, np.ndarray) else host_gather(last, mesh))
         proof_stream.push({"fri_last_codeword": [felt_to_item(int(v)) for v in last_values]})
 
         # Grinding: the nonce binds to the full commit-phase transcript and
@@ -285,7 +316,8 @@ class Fri:
         # Query phase. Round r opens PAIR leaf i_r of tree r, which binds both
         # colinearity values (a = c[i], b = c[i + half]) with one path. Every
         # gather of every round (codeword columns + sibling digests) goes
-        # through ONE device gather and ONE transfer.
+        # through ONE device gather and ONE transfer; under a group ONE
+        # owner_gather of the blocks (global indices).
         indices = list(top_indices)
         requests: List = []
         pending: List[dict] = []
@@ -306,7 +338,7 @@ class Fri:
             requests.extend(reqs)
             pending.append(entry)
         with _tphase("query-gather"):
-            fetched = gather_requests(requests)
+            fetched = gather_requests(requests, mesh)
         for entry in pending:
             if "slot" in entry:
                 entry["cols"] = fetched[entry["slot"]]
@@ -335,18 +367,24 @@ class Fri:
         tree.pair_leaves = True
         return tree
 
-    def _host_tail(self, codeword_mont, start_round, rounds, omega, offset,
-                   codewords, trees, proof_stream, checkpoint_dir, checkpoint_meta) -> None:
-        """Run rounds start_round..rounds-1 in exact host arithmetic: one
-        device->host copy of the (small) current codeword, then native C
-        folds and hashlib commits; identical values, roots and snapshots."""
-        values = [int(v) for v in words_to_ints(to_numpy(fk.from_mont(codeword_mont)))]
+    def _on_host(self, n: int, world: int) -> bool:
+        """True for a round whose length-n codeword finishes on the host:
+        at most host_tail_n, or too short to cut into pair halves of W
+        blocks (n < 2W) under a group."""
+        return n <= self.host_tail_n or n < 2 * world
+
+    def _host_tail(self, values, start_round, rounds, omega, offset, codewords, trees,
+                   proof_stream, checkpoint_dir, checkpoint_meta, mesh) -> None:
+        """Run rounds start_round..rounds-1 in exact host arithmetic from the
+        standard-form values of the round's codeword (one device->host copy
+        of the small codeword, gathered under a group): native C folds and
+        hashlib commits; identical values, roots and snapshots on every
+        process."""
         for r in range(start_round, rounds):
             tree = self._commit_host(values)
             words = ints_to_words(values)
             if checkpoint_dir is not None:
-                checkpoint.save(checkpoint_dir, f"fri-r{r}", [], {"codeword": words},
-                                checkpoint_meta)
+                snapshot(checkpoint_dir, f"fri-r{r}", [], {"codeword": words}, checkpoint_meta, mesh)
             codewords.append(words)
             trees.append(tree)
             proof_stream.push({"fri_root": digest_to_item(tree.root)})

@@ -78,16 +78,25 @@ def _host_hash_level(rows: np.ndarray) -> np.ndarray:
     return out
 
 
-def gather_requests(requests) -> List[np.ndarray]:
+def gather_requests(requests, mesh=None) -> List[np.ndarray]:
     """Execute gather requests [(tensor (k, n), index list)] as ONE
     concatenated device gather and ONE device->host copy. Returns, per
-    request, a (k, len(indices)) uint32 numpy array."""
+    request, a (k, len(indices)) uint32 numpy array.
+
+    mesh: a parallel.Mesh whose group spreads the codewords over processes;
+    every tensor is then this process's block of a block-sharded array, the
+    indices are global, and all requests go through ONE
+    ``Mesh.owner_gather`` (one all_reduce). Levels a tree keeps on the
+    host never become requests (MerkleTree._prefetch_plan)."""
     if not requests:
         return []
-    parts = []
-    for arr, idx in requests:
-        ix = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=arr.device)
-        parts.append(arr.index_select(1, ix).reshape(-1))
+    if mesh is not None and mesh.group is not None:
+        parts = [p.reshape(-1) for p in mesh.owner_gather(requests)]
+    else:
+        parts = []
+        for arr, idx in requests:
+            ix = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=arr.device)
+            parts.append(arr.index_select(1, ix).reshape(-1))
     host = to_numpy(torch.cat(parts))
     out, off = [], 0
     for arr, idx in requests:

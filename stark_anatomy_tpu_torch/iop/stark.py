@@ -44,10 +44,20 @@ extended like a trace column; none at all is valid).
 ``Stark(mesh=...)`` (parallel/mesh.py ``make_mesh``) cuts every column's
 domain into the mesh's shards: the trace columns are extended through the
 four-step sharded transforms (parallel/ntt_sharded.py) and every device
-commit is the sharded one (parallel/merkle_sharded.py). The elementwise
-phases work on whole tensors, so the mesh must live in one process;
-``prove`` on a mesh spread over several raises. The proof bytes are those of
-the prover without a mesh, and the verifier never looks at it.
+commit is the sharded one (parallel/merkle_sharded.py). Without a process
+group the mesh lives in one process and the elementwise phases work on
+whole tensors. With one (of any size, one process included) the prove is
+block-local: every process calls ``prove`` with the same trace, boundary
+and seed, and holds only its (4, F/W) natural-layout block of every
+codeword, global columns [rank*F/W, (rank+1)*F/W). Tables (x^s, the
+periodic constants, the zerofier tile) are built for the block alone, the
+zk coefficients are drawn in the cyclic layout the sharded coset
+evaluation takes, the next-row codewords take a halo of F/O columns from
+the next process (``roll_left``), and the openings read the blocks through
+one ``owner_gather``; domains too small for the four-step transform
+(S^2 not dividing O) are computed whole and cut. Every process returns the
+proof bytes of the prover without a mesh, and the verifier never looks at
+it.
 
 ``prove(checkpoint_dir=...)`` snapshots the expensive intermediates before
 FRI and after every FRI round (utils/checkpoint.py) and resumes from them.
@@ -73,7 +83,7 @@ from typing import Dict, List, Sequence, Tuple
 import numpy as np
 import torch
 
-from stark_anatomy_tpu_torch.iop.fri import MULTI_PROCESS_PROVE, Fri, commit
+from stark_anatomy_tpu_torch.iop.fri import Fri, commit, snapshot
 from stark_anatomy_tpu_torch.iop.merkle import gather_requests, verify_multiproof
 from stark_anatomy_tpu_torch.iop.proof_stream import ProofStream, ProofStreamError
 from stark_anatomy_tpu_torch.ops import field_kernels as fk
@@ -98,7 +108,20 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     to_tensor,
     words_to_ints,
 )
-from stark_anatomy_tpu_torch.parallel.ntt_sharded import sharded_lde, sharded_ntt
+from stark_anatomy_tpu_torch.parallel.mesh import (
+    block_start,
+    holds_blocks,
+    roll_left,
+    shard,
+    upload_block,
+)
+from stark_anatomy_tpu_torch.parallel.ntt_sharded import (
+    CYCLIC,
+    cyclic_indices,
+    four_step_fits,
+    sharded_coset_evaluate,
+    sharded_lde,
+)
 from stark_anatomy_tpu_torch.utils import checkpoint, threefry
 from stark_anatomy_tpu_torch.utils.encoding import (
     digest_to_item,
@@ -143,6 +166,25 @@ def _lagrange_coeffs(points: List[Tuple[int, int]]) -> List[int]:
         for d, c in enumerate(basis):
             coeffs[d] = (coeffs[d] + scale * c) % PRIME
     return coeffs
+
+
+def _block(n: int, mesh) -> Tuple[int, int]:
+    """(first global column, width) of this process's part of a length-n
+    codeword: its block under a mesh with a group, else the whole."""
+    if holds_blocks(mesh):
+        return block_start(n, mesh), n // mesh.world
+    return 0, n
+
+
+def _tile(period: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """Columns start .. start+count-1 of the periodic tiling of `period`
+    (4, blk): a repeat where the part starts and ends on the period, else a
+    gather by global column (a block need not start on a period)."""
+    blk = period.shape[1]
+    if start % blk == 0 and count % blk == 0:
+        return period.repeat(1, count // blk)
+    idx = torch.arange(start, start + count, dtype=torch.int64, device=period.device) % blk
+    return period.index_select(1, idx)
 
 
 def sample_weights(seed: bytes, count: int) -> List[int]:
@@ -207,7 +249,7 @@ class Stark:
     fri_host_tail_n: FRI codewords of at most this length finish on the host.
     mesh: an optional parallel.Mesh; the prover then runs on the mesh's
     device (``device`` is set from it) through the sharded transforms and
-    commits.
+    commits, block-local when the mesh has a process group.
     """
 
     air: object
@@ -433,39 +475,45 @@ class Stark:
         """Host field elements -> (4, n) Montgomery word planes on device."""
         return to_tensor(ints_to_words([mont(v) for v in values]), device)
 
+    @property
+    def _group_mesh(self):
+        """The mesh when it has a process group (the prove is then
+        block-local), else None."""
+        return self.mesh if holds_blocks(self.mesh) else None
+
     def _x_pow_codeword(self, s: int, device) -> torch.Tensor:
-        """(4, F) Montgomery evals of x^s on the FRI coset."""
-        tab = nttmod.powers(pow(self.omega, s, PRIME), self.fri_domain_length, device)
+        """(4, F) Montgomery evals of x^s on the FRI coset (this process's
+        block under a group: the powers table starts at its first column)."""
+        start, count = _block(self.fri_domain_length, self.mesh)
+        tab = nttmod.powers(pow(self.omega, s, PRIME), count, device, start=start)
         return fk.mont_mul(tab, mont(pow(self.offset, s, PRIME)), out=tab)
 
-    def column_lde_words(self, words: np.ndarray, device) -> torch.Tensor:
-        """(4, O) uint32 standard-form column -> (4, F) Montgomery LDE."""
+    def column_lde_words(self, words: np.ndarray, device, mesh=None) -> torch.Tensor:
+        """(4, O) uint32 standard-form column -> (4, F) Montgomery LDE,
+        through the sharded transforms under `mesh` (this process's block
+        under a group: only its block of the column is uploaded)."""
         o = self.omicron_domain_length
         if words.shape != (4, o):
             raise ValueError(f"expected (4, {o}) word planes, got {words.shape}")
         f = self.fri_domain_length
-        evals = fk.to_mont(to_tensor(words, device))
-        if self.mesh is not None:
-            # The four-step transform needs S | n and S | n/S; tiny domains
-            # take the single-device transform (the same values).
-            s = self.mesh.shards
-            if o % s == 0 and (o // s) % s == 0:
-                if f % s == 0 and (f // s) % s == 0:
-                    # four exchanges: iNTT -> CYCLIC coefficients, local
-                    # offset scale and pad, NTT cyclic -> natural
-                    return sharded_lde(evals, f, self.offset, self.mesh)
-                coeffs = sharded_ntt(evals, self.mesh, inverse=True)
-                return nttmod.coset_evaluate(coeffs, f, self.offset)
-        return nttmod.coset_evaluate(nttmod.intt(evals), f, self.offset)
+        if mesh is not None and four_step_fits(o, mesh.shards):
+            # four exchanges: iNTT -> CYCLIC coefficients, local offset
+            # scale and pad, NTT cyclic -> natural (S^2 | O gives S^2 | F)
+            return sharded_lde(fk.to_mont(upload_block(words, mesh, device)), f, self.offset, mesh)
+        # Tiny domains: the single-device transform (the same values).
+        lde = nttmod.coset_evaluate(nttmod.intt(fk.to_mont(to_tensor(words, device))), f, self.offset)
+        return shard(lde, mesh) if holds_blocks(mesh) else lde
 
-    def _constants_codewords(self, device) -> List[torch.Tensor]:
-        """(4, F) Montgomery codewords of the AIR's constant columns.
+    def _constants_codewords(self, device, mesh=None) -> List[torch.Tensor]:
+        """(4, F) Montgomery codewords of the AIR's constant columns
+        (under a mesh with a group: this process's blocks).
 
         Periodic AIRs (periodic_columns): the codeword over the FRI coset
         repeats with period blk = period * F/O, so ONE blk-length block is
         evaluated exactly on the host and tiled on the device: no
-        O(F log F) transforms. Other AIRs give dense omicron-domain columns,
-        as canonical bytes or as ints, each extended like a trace column."""
+        O(F log F) transforms; a process's block is indexed by global
+        column. Other AIRs give dense omicron-domain columns, as canonical
+        bytes or as ints, each extended like a trace column."""
         o = self.omicron_domain_length
         f = self.fri_domain_length
         if not hasattr(self.air, "periodic_columns"):
@@ -473,8 +521,9 @@ class Stark:
                 cols = [bytes_to_words(c) for c in self.air.constant_columns_bytes(o)]
             else:
                 cols = [ints_to_words(c) for c in self.air.constant_columns(o)]
-            return [self.column_lde_words(c, device) for c in cols]
+            return [self.column_lde_words(c, device, mesh) for c in cols]
         period, coeffs = self._periodic_coeffs()
+        start, count = _block(f, mesh)
         blk = period * f // o  # block length on the FRI domain
         a = pow(self.offset, o // period, PRIME)  # coset offset^(O/period)
         apow = [pow(a, d, PRIME) for d in range(period)]
@@ -483,7 +532,7 @@ class Stark:
             scaled = [q[d] * apow[d] % PRIME for d in range(period)]
             scaled += [0] * (blk - period)
             block = host_ntt(scaled)  # Q_c on the coset a*<omega_blk>
-            cws.append(self._mont_column(block, device).repeat(1, f // blk))
+            cws.append(_tile(self._mont_column(block, device), start, count))
         return cws
 
     def _denom_inv_tile(self, device) -> torch.Tensor:
@@ -503,11 +552,19 @@ class Stark:
 
     def _excluded_codeword(self, device) -> torch.Tensor:
         """(4, F) Montgomery evals of the excluded-row factor on the FRI
-        coset, via ONE coset NTT of _excluded_coeffs."""
-        return nttmod.coset_evaluate(
-            self._mont_column(self._excluded_coeffs(), device),
-            self.fri_domain_length, self.offset,
-        )
+        coset, via ONE coset NTT of _excluded_coeffs. Under a group: the
+        coefficients zero-padded to n >= S^2, each process uploads the ones
+        it holds in CYCLIC layout, and the sharded coset evaluation (local
+        scale and pad) leaves its natural block."""
+        coeffs, f = self._excluded_coeffs(), self.fri_domain_length
+        mesh = self._group_mesh
+        n = 0 if mesh is None else max(_next_pow2(len(coeffs)), mesh.shards ** 2)
+        if mesh is None or n > f or not four_step_fits(f, mesh.shards):
+            cw = nttmod.coset_evaluate(self._mont_column(coeffs, device), f, self.offset)
+            return cw if mesh is None else shard(cw, mesh)
+        words = ints_to_words([mont(c) for c in coeffs] + [0] * (n - len(coeffs)))
+        local = to_tensor(words[:, cyclic_indices(n, mesh).cpu().numpy()], device)
+        return sharded_coset_evaluate(local, f, self.offset, mesh, layout_in=CYCLIC)
 
     def _transition_zerofier_inv(self, device) -> torch.Tensor:
         """(4, F) Montgomery evals of 1/Z_transition on the FRI coset.
@@ -517,7 +574,7 @@ class Stark:
         excluded-row codeword times the tiled periodic denominator inverse."""
         tile = self._denom_inv_tile(device)
         excl = self._excluded_codeword(device)
-        tiled = tile.repeat(1, self.fri_domain_length // tile.shape[1])
+        tiled = _tile(tile, *_block(self.fri_domain_length, self.mesh))
         return fk.mont_mul(excl, tiled, out=excl)
 
     # -- prover ------------------------------------------------------------
@@ -536,7 +593,7 @@ class Stark:
             else:
                 body = ints_to_words([int(v) for v in trace[:, j]])
             columns.append(np.concatenate([body, pad_words], axis=1))
-        return [self.column_lde_words(c, device) for c in columns]
+        return [self.column_lde_words(c, device, self.mesh) for c in columns]
 
     def _boundary_quotients(self, t_lde, bps, device) -> List[torch.Tensor]:
         """Standard-form boundary quotients (t_j - B_j) / Z_j, with ONE
@@ -588,27 +645,47 @@ class Stark:
         sha256(tag || seed) (utils/threefry.py): 16 rows of 16-bit digits
         form X = hi*2^128 + lo with hi, lo < 2^128 < 2p, each canonicalised
         by one conditional subtract (add with zero). Multiplying by 2^128 IS
-        the Montgomery lift, so X mod p = to_mont(hi) + lo."""
-        n = self.degree_target + 1
+        the Montgomery lift, so X mod p = to_mont(hi) + lo.
+
+        Under a group each process draws only the coefficients it holds in
+        CYCLIC layout (counters of the whole draw, utils/threefry.py), and
+        the sharded coset evaluation takes them as they are: no process
+        holds the coefficient array."""
+        n, f = self.degree_target + 1, self.fri_domain_length
+        mesh = self._group_mesh
+        local = mesh is not None and four_step_fits(n, mesh.shards)
         digest = hashlib.sha256(_ZK_TAG + seed).digest()
         key = np.frombuffer(digest[:8], dtype="<u4")
-        raw = threefry.random_bits(key, 16, n, device) & 0xFFFF
+        columns = cyclic_indices(n, mesh) if local else None
+        raw = threefry.random_bits(key, 16, n, device, columns=columns) & 0xFFFF
         halves = raw[0::2] | (raw[1::2] << 16)  # (8, n): words of lo, then hi
         lo = fk.add(pack_words(list(halves[:4])), 0)
         hi = fk.add(pack_words(list(halves[4:])), 0)
         del raw, halves
         coeffs = fk.to_mont(fk.add(fk.to_mont(hi), lo))
-        cw = nttmod.coset_evaluate(coeffs, self.fri_domain_length, self.offset)
+        if local:
+            cw = sharded_coset_evaluate(coeffs, f, self.offset, mesh, layout_in=CYCLIC)
+        else:
+            cw = nttmod.coset_evaluate(coeffs, f, self.offset)
+            if mesh is not None:
+                cw = shard(cw, mesh)
         return fk.from_mont(cw, out=cw)
+
+    def _next_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """The codeword one trace row on: t rolled left by e = F/O columns
+        (under a group this process's block of it: its block shifted left
+        with the next block's first e columns appended, roll_left)."""
+        if self._group_mesh is None:
+            return torch.roll(t, -self.expansion_shift, dims=1)
+        return roll_left(t, self.expansion_shift, self._group_mesh)
 
     def _combination(self, t_lde, bq_standard, zk_standard, bps, weights, device):
         """Transition quotients and the weighted combination codeword, every
         term lifted to degree_target; the zk randomizer enters with weight 1."""
         o, w = self.omicron_domain_length, self.num_registers
-        e = self.expansion_shift
-        nxt = [torch.roll(t, -e, dims=1) for t in t_lde]
+        nxt = [self._next_rows(t) for t in t_lde]
         terms = list(self.air.eval_transition_device(
-            t_lde, nxt, self._constants_codewords(device)))
+            t_lde, nxt, self._constants_codewords(device, self.mesh)))
         del nxt
         zt_inv = self._transition_zerofier_inv(device)
         for c in terms:
@@ -659,8 +736,6 @@ class Stark:
         the same trace, boundary and seed resumes from the latest of them to
         the same bytes. A snapshot of other inputs is refused.
         """
-        if self.mesh is not None and self.mesh.world > 1:
-            raise NotImplementedError(MULTI_PROCESS_PROVE)
         device = require_device(self.device)
         if randomizer_seed is None:
             randomizer_seed = os.urandom(32)
@@ -712,11 +787,11 @@ class Stark:
 
         if checkpoint_dir is not None:
             with _phase("prove.checkpoint", device):
-                arrays = {"comb": to_numpy(comb), "zk": to_numpy(zk_standard)}
+                arrays = {"comb": comb, "zk": zk_standard}
                 for j, q in enumerate(bq_standard):
-                    arrays[f"bq{j}"] = to_numpy(q)
-                checkpoint.save(checkpoint_dir, checkpoint.STAGE_PRE_FRI, list(ps.items),
-                                arrays, ckpt_meta)
+                    arrays[f"bq{j}"] = q
+                snapshot(checkpoint_dir, checkpoint.STAGE_PRE_FRI, list(ps.items), arrays, ckpt_meta,
+                         self.mesh)
         return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
                                   device, checkpoint_dir, ckpt_meta)
 
@@ -752,15 +827,16 @@ class Stark:
         combination come from disk, and the boundary-quotient and
         zk-randomizer trees are re-committed from their saved standard-form
         codewords (commitment is deterministic, so the roots already in the
-        transcript are theirs)."""
+        transcript are theirs). Under a group every process keeps its block."""
         arrays = loaded["arrays"]
         ps = ProofStream(loaded["items"])
         with _phase("prove.resume-commit", device):
-            bq_standard = [to_tensor(arrays[f"bq{j}"], device) for j in range(self.num_registers)]
+            bq_standard = [upload_block(arrays[f"bq{j}"], self.mesh, device)
+                           for j in range(self.num_registers)]
             bq_tree = commit(bq_standard, self.mesh)
-            zk_standard = to_tensor(arrays["zk"], device)
+            zk_standard = upload_block(arrays["zk"], self.mesh, device)
             zk_tree = commit([zk_standard], self.mesh)
-        comb = to_tensor(arrays["comb"], device)
+        comb = upload_block(arrays["comb"], self.mesh, device)
         return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
                                   device, checkpoint_dir, ckpt_meta)
 
@@ -776,7 +852,9 @@ class Stark:
     def _open(self, ps, top_indices, bq_standard, bq_tree, zk_standard, zk_tree) -> None:
         """Open the boundary-quotient rows and zk-randomizer values the
         verifier needs: ALL gathers (codeword columns + Merkle digests of
-        both trees) go through one device gather and one transfer."""
+        both trees) go through one device gather and one transfer (under a
+        group one owner_gather of the blocks; over several processes the
+        tree levels are on the host, see parallel/merkle_sharded.py)."""
         f, e = self.fri_domain_length, self.expansion_shift
         need = set()
         for i in top_indices:
@@ -798,7 +876,7 @@ class Stark:
         zk_reqs, zk_fill = zk_tree._prefetch_plan(zk_pairs)
         requests.extend(bq_reqs)
         requests.extend(zk_reqs)
-        fetched = gather_requests(requests)
+        fetched = gather_requests(requests, self.mesh)
         bq_fill(fetched[n_cols : n_cols + len(bq_reqs)])
         zk_fill(fetched[n_cols + len(bq_reqs) :])
 

@@ -23,7 +23,7 @@ from stark_anatomy_tpu_torch.ops import field_kernels as fk
 from stark_anatomy_tpu_torch.ops import field_torch as ft
 from stark_anatomy_tpu_torch.ops import ntt_kernels
 from stark_anatomy_tpu_torch.ops.field import PRIME, finv, primitive_root_of_unity
-from stark_anatomy_tpu_torch.ops.limbs import R_MOD_P, mont, require_device
+from stark_anatomy_tpu_torch.ops.limbs import mont, require_device
 
 __all__ = ["ntt", "intt", "grouped_ntt", "coset_lde", "coset_evaluate", "coset_interpolate", "powers",
            "poly_mul", "cached_table", "clear_twiddle_cache"]
@@ -31,20 +31,23 @@ __all__ = ["ntt", "intt", "grouped_ntt", "coset_lde", "coset_evaluate", "coset_i
 _ntt_core = ntt_kernels.transform_plain
 
 
-def powers(base: int, count: int, device="cuda") -> torch.Tensor:
-    """(4, count) Montgomery-form powers [base^0 .. base^(count-1)].
+def powers(base: int, count: int, device="cuda", start: int = 0) -> torch.Tensor:
+    """(4, count) Montgomery-form powers [base^start .. base^(start+count-1)].
 
-    Doubling: the table [b^0 .. b^(L-1)] extends to 2L with one product by
+    Doubling: the table [b^s .. b^(s+L-1)] extends to 2L with one product by
     the constant b^L, written straight into the second half of the output
-    (sum of widths = count products in total)."""
+    (sum of widths = count products in total). A table that starts at s is
+    seeded with b^s: a block of a longer table, built alone."""
     device = require_device(device)
     if count < 1:
         raise ValueError("count must be positive")
+    if start < 0:
+        raise ValueError("start must not be negative")
     cap = 1
     while cap < count:
         cap *= 2
     table = torch.empty((4, cap), dtype=torch.int32, device=device)
-    table[:, :1] = ft.const_column(R_MOD_P, table)
+    table[:, :1] = ft.const_column(mont(pow(base, start, PRIME)), table)
     length = 1
     while length < cap:
         fk.mont_mul(table[:, :length], mont(pow(base, length, PRIME)),

@@ -13,7 +13,9 @@ In one process the S blocks are slices of one tensor, so each level is ONE
 hash launch over all shards, and the levels stay on the device (as
 ``(16, m)`` digest planes, natural order) for the openings. Over several
 processes each hashes the blocks of its own shards and every level is
-gathered to the host of every process. Levels are kept in natural order;
+gathered to the host of every process. Under a process group (one process
+included) the pair leaves come through ``pair_exchange``, the exchange the
+block-local FRI fold (iop/fri.py) shares. Levels are kept in natural order;
 the bit-reversed lane order of the TPU kernels is not carried over.
 """
 
@@ -37,28 +39,39 @@ from stark_anatomy_tpu_torch.ops.limbs import to_numpy
 from stark_anatomy_tpu_torch.parallel.mesh import Mesh, gather, host_gather
 
 
-def _pair_planes(columns: Sequence[torch.Tensor], mesh: Mesh) -> torch.Tensor:
-    """The pair-leaf message planes of this process's leaves, over several
-    processes: row j of every column, then row j + n/2 of every column.
+def pair_exchange(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+    """Rows i and i + n/2 of a block-sharded ``(k, n/W)`` tensor, brought to
+    the process that owns output row i of the length-n/2 half:
+    ``(2k, n/(2W))``, every plane's first-half rows, then every plane's
+    second-half rows (the pair leaves of a commit, the pairs of a FRI fold).
 
     Cut the global rows into 2W half-blocks; process p holds half-blocks 2p
-    and 2p + 1, and the leaves of process r need half-block r (first halves)
-    and W + r (second halves). So every process sends its two half-blocks to
-    the two neighbouring processes (2p mod W and 2p + 1 mod W) and receives
-    two, in ONE ``all_to_all_single`` with uneven splits; what arrives is
-    already in source order = first half, then second half."""
+    and 2p + 1, and process r needs half-block r (first halves) and W + r
+    (second halves). So every process sends its two half-blocks to the
+    processes 2p mod W and 2p + 1 mod W and receives two, in ONE
+    ``all_to_all_single`` with uneven splits; what arrives is already in
+    source order = first half, then second half. One process sends both to
+    itself."""
     w, rank = mesh.world, mesh.rank
-    stacked = leaf_word_planes(columns)
-    half = stacked.shape[1] // 2
-    size = stacked.shape[0] * half
-    send = torch.cat([stacked[:, :half].reshape(-1), stacked[:, half:].reshape(-1)])
+    k, block = t.shape
+    if block % 2:
+        raise ValueError(f"a block of {block} columns does not split into pair halves")
+    half = block // 2
+    size = k * half
+    send = torch.cat([t[:, :half].reshape(-1), t[:, half:].reshape(-1)])
     recv = torch.empty_like(send)
     send_sizes, recv_sizes = [0] * w, [0] * w
     for b in (0, 1):
         send_sizes[(2 * rank + b) % w] += size
         recv_sizes[(b * w + rank) // 2] += size
     dist.all_to_all_single(recv, send, recv_sizes, send_sizes, group=mesh.group)
-    return recv.reshape(2 * stacked.shape[0], half)
+    return recv.reshape(2 * k, half)
+
+
+def _host_levels(tree: MerkleTree) -> MerkleTree:
+    """The same tree with every level on the host as (m, 16) rows."""
+    tree.levels = [_rows(to_numpy(lv)) if isinstance(lv, torch.Tensor) else lv for lv in tree.levels]
+    return tree
 
 
 def _rows(level: np.ndarray) -> np.ndarray:
@@ -73,22 +86,25 @@ def commit_sharded(columns: Sequence[torch.Tensor], mesh: Mesh, pair: bool = Fal
     layout). Returns a MerkleTree whose root, levels and openings equal
     iop/merkle.py ``commit_columns(columns, pair)`` of the whole columns;
     with several processes every process holds the whole tree, on the host.
-    pair=True commits pair leaves (iop/merkle.py pair_columns); row j and its
-    partner j + n/2 then start on different processes, see _pair_planes."""
+    pair=True commits pair leaves (iop/merkle.py pair_columns); under a group
+    row j and its partner j + n/2 start on different processes, see
+    pair_exchange."""
     s, w = mesh.shards, mesh.world
     rows = columns[0].shape[-1] * w
     leaves = rows // 2 if pair else rows
     per_shard = leaves // s
     if s == 1 or leaves % s or per_shard == 0 or per_shard & (per_shard - 1):
         # Tiny or indivisible domains (the last FRI rounds): the
-        # single-device commit of the whole columns, the same tree.
-        return commit_columns([gather(c, mesh) for c in columns], pair=pair)
+        # single-device commit of the whole columns, the same tree; over
+        # several processes its levels go to the host like the others.
+        tree = commit_columns([gather(c, mesh) for c in columns], pair=pair)
+        return tree if w == 1 else _host_levels(tree)
     if not pair:
         msg = leaf_word_planes(columns)
-    elif w == 1:
+    elif mesh.group is None:
         msg = leaf_word_planes(pair_columns(columns))
     else:
-        msg = _pair_planes(columns, mesh)
+        msg = pair_exchange(leaf_word_planes(columns), mesh)
     cur = blake2b_planes(msg, 4 * msg.shape[0])
     device_levels: List[torch.Tensor] = [cur]
     while cur.shape[1] > mesh.local_shards:  # down to one root per shard

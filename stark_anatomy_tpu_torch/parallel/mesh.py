@@ -15,17 +15,26 @@ Layouts of a sharded ``(4, n)`` codeword (the names of ntt_sharded.py):
 natural = contiguous blocks, so each process holds the ``(4, n/W)`` tensor of
 its block (with W = 1 simply the ``(4, n)`` tensor); cyclic = stored index
 ``k1 * n/S + k2`` holds element ``k1 + S * k2``, cut the same way.
+
+Beside the exchange of the four-step transform, the block-local prover
+(``Stark.prove`` under a group) needs three collectives, each written once
+for a group of any size, one process included: ``block_start`` (where this
+process's block begins), ``roll_left`` (the block of the codeword rolled by
+whole columns, for the AIR's next-row codewords: a halo from the next
+block) and ``Mesh.owner_gather`` (values at global indices, the same on
+every process, for the openings).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import List
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
-from stark_anatomy_tpu_torch.ops.limbs import require_device, to_numpy
+from stark_anatomy_tpu_torch.ops.limbs import require_device, to_numpy, to_tensor
 
 
 @dataclass(frozen=True)
@@ -104,6 +113,31 @@ class Mesh:
         at = order.index(1)
         return y.permute(order).contiguous().flatten(at, at + 1)
 
+    def owner_gather(self, requests) -> List[torch.Tensor]:
+        """The values of block-sharded ``(k, n/W)`` tensors at global
+        indices (a sequence or an int64 tensor), for every ``(tensor,
+        indices)`` request: ``(k, len(indices))`` each, the same on every
+        process, with ONE collective. Every process passes the same
+        requests; each writes the values at the indices its block holds and
+        0 in every other slot, and one ``all_reduce(SUM)`` over int32 joins
+        them. Exact: exactly one term of every sum is nonzero. Without a
+        group the block is the whole tensor."""
+        if not requests:
+            return []
+        parts, shapes = [], []
+        for t, indices in requests:
+            block = t.shape[-1]
+            idx = torch.as_tensor(indices, dtype=torch.int64).to(t.device).reshape(-1)
+            local = idx - self.rank * block
+            mine = (local >= 0) & (local < block)
+            vals = t.index_select(1, torch.where(mine, local, 0))
+            parts.append(torch.where(mine, vals, 0).reshape(-1))
+            shapes.append((t.shape[0], idx.numel()))
+        flat = torch.cat(parts)
+        if self.group is not None:
+            dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=self.group)
+        return [p.reshape(shape) for p, shape in zip(flat.split([a * b for a, b in shapes]), shapes)]
+
 
 def make_mesh(num_shards: int, device="cuda", group=None) -> Mesh:
     """A mesh of `num_shards` shards on `device` (``"cuda"``, the default,
@@ -113,20 +147,78 @@ def make_mesh(num_shards: int, device="cuda", group=None) -> Mesh:
     return Mesh(int(num_shards), require_device(device), group)
 
 
+def block_start(n: int, mesh: Mesh) -> int:
+    """The global index of this process's first column of a length-n array
+    cut into the group's contiguous blocks (0 without a group)."""
+    if n % mesh.world:
+        raise ValueError(f"the {mesh.world} processes must divide the length {n}")
+    return mesh.rank * (n // mesh.world)
+
+
+def roll_left(t: torch.Tensor, e: int, mesh: Mesh) -> torch.Tensor:
+    """This process's block of a block-sharded ``(k, n)`` array rolled left
+    by `e` columns: ``torch.roll(whole, -e, dims=1)`` cut into the same
+    blocks, for any e. Without a group, torch.roll of the tensor.
+
+    The block's columns start+e .. start+e+block-1 (mod n) lie in two
+    blocks: from column o = e mod block on in the block `hops` = (e mod n)
+    // block processes on, and the first o columns of the one after it.
+    So every process sends its columns o.. and its first o columns to the
+    two processes that need them, in ONE ``all_to_all_single`` with uneven
+    splits (e < block: the first e columns of the next block, a halo; one
+    process sends both parts to itself)."""
+    if mesh.group is None:
+        return torch.roll(t, -e, dims=1)
+    k, block = t.shape
+    w, rank = mesh.world, mesh.rank
+    hops, o = divmod(e % (block * w), block)
+    # (destination, part, columns): part 0 = its first columns, 1 = the rest
+    parts = sorted([((rank - hops) % w, 0, t[:, o:]), ((rank - hops - 1) % w, 1, t[:, :o])],
+                   key=lambda p: p[:2])
+    send = torch.cat([cols.reshape(-1) for _, _, cols in parts])
+    send_sizes, recv_sizes = [0] * w, [0] * w
+    for dst, _, cols in parts:
+        send_sizes[dst] += cols.numel()
+    first_src, second_src = (rank + hops) % w, (rank + hops + 1) % w
+    recv_sizes[first_src] += k * (block - o)
+    recv_sizes[second_src] += k * o
+    recv = torch.empty(k * block, dtype=t.dtype, device=t.device)
+    dist.all_to_all_single(recv, send, recv_sizes, send_sizes, group=mesh.group)
+    # recv holds the sources in rank order, each source's parts in part order
+    start = sum(recv_sizes[:first_src])
+    second_start = start + k * (block - o) if first_src == second_src else sum(recv_sizes[:second_src])
+    first = recv[start : start + k * (block - o)].reshape(k, block - o)
+    second = recv[second_start : second_start + k * o].reshape(k, o)
+    return torch.cat([first, second], dim=1)
+
+
 def shard(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """This process's contiguous block (along the last axis) of a tensor
     that every process holds whole."""
-    n = t.shape[-1]
-    if n % mesh.world:
-        raise ValueError(f"the {mesh.world} processes must divide the length {n}")
-    block = n // mesh.world
-    return t[..., mesh.rank * block : (mesh.rank + 1) * block].contiguous()
+    start, block = block_start(t.shape[-1], mesh), t.shape[-1] // mesh.world
+    return t[..., start : start + block].contiguous()
 
 
-def gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
+def holds_blocks(mesh: Mesh | None) -> bool:
+    """True for a mesh with a process group (of any size, one process
+    included): every codeword is then this process's block, and the prover
+    runs block-local."""
+    return mesh is not None and mesh.group is not None
+
+
+def upload_block(words: np.ndarray, mesh: Mesh | None, device) -> torch.Tensor:
+    """This process's block of host word planes (the whole array without a
+    group), on `device`; only the block is copied."""
+    if holds_blocks(mesh):
+        start = block_start(words.shape[-1], mesh)
+        words = words[:, start : start + words.shape[-1] // mesh.world]
+    return to_tensor(words, device)
+
+
+def gather(t: torch.Tensor, mesh: Mesh | None) -> torch.Tensor:
     """The whole tensor (blocks joined along the last axis) on every process,
-    on the device."""
-    if mesh.group is None:
+    on the device (`t` itself without a group)."""
+    if not holds_blocks(mesh):
         return t
     t = t.contiguous()
     parts = [torch.empty_like(t) for _ in range(mesh.world)]
@@ -134,6 +226,6 @@ def gather(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def host_gather(t: torch.Tensor, mesh: Mesh) -> np.ndarray:
+def host_gather(t: torch.Tensor, mesh: Mesh | None) -> np.ndarray:
     """The whole array as uint32 numpy on every process."""
     return to_numpy(gather(t, mesh))

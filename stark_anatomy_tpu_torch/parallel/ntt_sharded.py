@@ -32,14 +32,19 @@ tensor of its S/W shards (parallel/mesh.py), which in one process is the
 whole ``(4, n)`` tensor. Inside, the local shards are dim 1 of a
 ``(4, S/W, ...)`` tensor. The column transforms are ONE ``grouped_ntt``
 call (ops/ntt.py: the ``ntt_grouped`` kernel on a CUDA tensor) for
-2 <= S <= 128; more shards raise. The row transforms are
+2 <= S <= 128, whose groups end at 128; for S > 128 every size-S column
+goes through ``ntt_kernels.transform`` (``ntt_block`` and its
+``ntt_stage`` passes), n/(S*W) transforms a process: slow, and taken only
+on meshes that wide. The route is chosen by S alone. The row transforms are
 ``ntt_kernels.transform``, one call per local shard in a loop (the kernels
 take one transform length per launch), joined with one ``stack``. The
-cross-twiddle product is ``fk.mont_mul``. Tables are gathered from
-``ntt.powers`` at indices computed on the device, each process only its own
-rows, and cached beside the twiddle tables (``ntt.clear_twiddle_cache``
-drops them). All paths give the bytes of ops/ntt.py ``ntt`` / ``intt`` for
-every mesh (exact field math, canonical representatives).
+cross-twiddle product is ``fk.mont_mul``. Every table is this process's
+own entries alone: powers base^e at exponents computed on the device, each
+the product of two entries of tables about sqrt(n) long
+(``gathered_powers``), cached beside the twiddle tables
+(``ntt.clear_twiddle_cache`` drops them). All paths give the bytes of
+ops/ntt.py ``ntt`` / ``intt`` for every mesh (exact field math, canonical
+representatives).
 """
 
 from __future__ import annotations
@@ -49,22 +54,21 @@ import torch
 from stark_anatomy_tpu_torch.ops import field_kernels as fk
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
 from stark_anatomy_tpu_torch.ops import ntt_kernels
-from stark_anatomy_tpu_torch.ops.field import finv, primitive_root_of_unity
+from stark_anatomy_tpu_torch.ops.field import PRIME, finv, primitive_root_of_unity
 from stark_anatomy_tpu_torch.ops.limbs import mont
-from stark_anatomy_tpu_torch.parallel.mesh import Mesh, gather, shard
+from stark_anatomy_tpu_torch.parallel.mesh import Mesh, block_start, gather, shard
 
 NATURAL = "natural"
 CYCLIC = "cyclic"
 
-#: the column transforms run through grouped_ntt, whose groups end at 128
-MAX_SHARDS = 128
+#: the largest S whose column transforms are one grouped_ntt launch
+GROUPED_MAX = 128
 
 
 def _check_divisible(n: int, s: int) -> int:
-    n2 = n // s
-    if n % s or n2 % s:
+    if not four_step_fits(n, s):
         raise ValueError(f"shard count {s} must divide n and n/S (n={n})")
-    return n2
+    return n // s
 
 
 def _arange(count: int, mesh: Mesh, first: int = 0) -> torch.Tensor:
@@ -75,10 +79,31 @@ def _local_shard_ids(mesh: Mesh) -> torch.Tensor:
     return _arange(mesh.local_shards, mesh, first=mesh.rank * mesh.local_shards)
 
 
-def _gathered_powers(base: int, n: int, exponents: torch.Tensor) -> torch.Tensor:
-    """(4, exponents.numel()) Montgomery powers base^e, one gather from the
-    table [base^0 .. base^(n-1)]."""
-    return nttmod.powers(base, n, exponents.device).index_select(1, exponents.reshape(-1))
+def four_step_fits(n: int, shards: int) -> bool:
+    """True iff the four-step transform takes length n on `shards` shards
+    (S | n and S | n/S)."""
+    return n % shards == 0 and (n // shards) % shards == 0
+
+
+def cyclic_indices(n: int, mesh: Mesh) -> torch.Tensor:
+    """The global indices of a length-n array that this process holds in
+    CYCLIC layout, in stored order: element d + S*j at local slot (d, j)
+    for its shards d."""
+    s = mesh.shards
+    return (_local_shard_ids(mesh)[:, None] + s * _arange(n // s, mesh)).reshape(-1)
+
+
+def gathered_powers(base: int, n: int, exponents: torch.Tensor) -> torch.Tensor:
+    """(4, exponents.numel()) Montgomery powers base^e for exponents in
+    [0, n): e = hi*B + lo with B about sqrt(n), base^e = base^lo * (base^B)^hi,
+    two gathers from tables of B and n/B entries and one product. No table
+    spans the domain; the values are those of ``ntt.powers(base, n)[e]``."""
+    e = exponents.reshape(-1)
+    log_b = (max(n, 2) - 1).bit_length() // 2
+    b = 1 << log_b
+    lo = nttmod.powers(base, b, e.device).index_select(1, e & (b - 1))
+    hi = nttmod.powers(pow(base, b, PRIME), max(-(-n // b), 1), e.device).index_select(1, e >> log_b)
+    return fk.mont_mul(lo, hi, out=lo)
 
 
 def _cross_twiddles(n2: int, mesh: Mesh, inverse: bool) -> torch.Tensor:
@@ -90,7 +115,7 @@ def _cross_twiddles(n2: int, mesh: Mesh, inverse: bool) -> torch.Tensor:
     def build() -> torch.Tensor:
         w = primitive_root_of_unity(n)
         i2 = _local_shard_ids(mesh)[:, None] * (n2 // s) + _arange(n2 // s, mesh)
-        return _gathered_powers(finv(w) if inverse else w, n, i2[:, :, None] * _arange(s, mesh))
+        return gathered_powers(finv(w) if inverse else w, n, i2[:, :, None] * _arange(s, mesh))
 
     return nttmod.cached_table(
         ("cross", n, s, inverse, NATURAL, str(mesh.device), mesh.rank, mesh.world), build)
@@ -104,7 +129,7 @@ def _cross_twiddles_rows(n2: int, mesh: Mesh, inverse: bool) -> torch.Tensor:
 
     def build() -> torch.Tensor:
         w = primitive_root_of_unity(n)
-        return _gathered_powers(finv(w) if inverse else w, n,
+        return gathered_powers(finv(w) if inverse else w, n,
                                 _local_shard_ids(mesh)[:, None] * _arange(n2, mesh))
 
     return nttmod.cached_table(
@@ -116,17 +141,23 @@ def _cyclic_offset_table(offset: int, n: int, mesh: Mesh) -> torch.Tensor:
     (i1, j) holds offset^(i1 + S*j), the table that multiplies a
     cyclic-layout coefficient array elementwise (the same value pairs as in
     natural layout, so the products are the same)."""
-    s = mesh.shards
-    return _gathered_powers(offset, n, _local_shard_ids(mesh)[:, None] + s * _arange(n // s, mesh))
+    return gathered_powers(offset, n, cyclic_indices(n, mesh))
 
 
 def _col_transform(y: torch.Tensor, inverse: bool) -> torch.Tensor:
     """(4, L, S, c), dim 2 the transform index -> (4, L, c, S), dim 3 the
-    output index: every column's size-S transform, all in one grouped_ntt
-    call on the flat array whose aligned runs of S are the columns."""
+    output index: every column's size-S transform on the flat array whose
+    aligned runs of S are the columns. S <= 128: all in one grouped_ntt
+    call. S > 128: one ``transform`` a column (L*c = n/(S*W) of them), the
+    1/S of the inverse folded in as grouped_ntt folds it."""
     _, local, s, c = y.shape
     flat = y.permute(0, 1, 3, 2).reshape(4, local * c * s)
-    return nttmod.grouped_ntt(flat, s, inverse).reshape(4, local, c, s)
+    if s <= GROUPED_MAX:
+        return nttmod.grouped_ntt(flat, s, inverse).reshape(4, local, c, s)
+    tw = nttmod._twiddles(s, inverse, y.device)
+    scale = mont(finv(s)) if inverse else None
+    cols = [ntt_kernels.transform(flat[:, k * s : (k + 1) * s], tw, scale) for k in range(local * c)]
+    return torch.stack(cols, dim=1).reshape(4, local, c, s)
 
 
 def _row_transform(y: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -193,8 +224,6 @@ def sharded_ntt(
     s = mesh.shards
     if s == 1:
         return nttmod.intt(x_mont) if inverse else nttmod.ntt(x_mont)
-    if s > MAX_SHARDS:
-        raise ValueError(f"the column transforms take at most {MAX_SHARDS} shards, got {s}")
     if layout_in == CYCLIC and layout_out != NATURAL:
         raise ValueError("cyclic->cyclic transforms are not defined")
     local = mesh.local_shards
@@ -223,7 +252,8 @@ def sharded_coset_evaluate(
     appended to each shard's block extend every residue class, and the
     transform takes cyclic directly. With natural input the pad moves block
     boundaries, so several processes gather the (shorter) coefficient array
-    and each cuts its block of the padded one."""
+    and each cuts its block of the padded one: the block-local prover
+    (``Stark.prove`` under a group) takes the cyclic branch only."""
     n = coeffs_mont.shape[-1] * mesh.world
     if n > domain_len:
         raise ValueError("polynomial longer than the target domain")
@@ -239,7 +269,7 @@ def sharded_coset_evaluate(
             padded[:, :, : n // s] = scaled.reshape(4, local, n // s)
             scaled = padded.reshape(4, local * (domain_len // s))
         return sharded_ntt(scaled, mesh, layout_in=CYCLIC, layout_out=NATURAL)
-    off = shard(nttmod.powers(offset, n, coeffs_mont.device), mesh)
+    off = nttmod.powers(offset, n // mesh.world, coeffs_mont.device, start=block_start(n, mesh))
     scaled = gather(fk.mont_mul(coeffs_mont, off), mesh)
     if n < domain_len:
         padded = torch.zeros((4, domain_len), dtype=torch.int32, device=scaled.device)

@@ -40,9 +40,18 @@ def threefry2x32(key, x0: torch.Tensor, x1: torch.Tensor):
     return x0, x1
 
 
-def random_bits(key, rows: int, n: int, device) -> torch.Tensor:
+def random_bits(key, rows: int, n: int, device, columns: torch.Tensor | None = None) -> torch.Tensor:
     """(rows, n) int64 tensor of the uint32 words jax.random.bits draws for
-    shape (rows, n) from threefry key `key` (two uint32 words)."""
-    flat = torch.arange(rows * n, dtype=torch.int64, device=device)
+    shape (rows, n) from threefry key `key` (two uint32 words).
+
+    columns: an int64 tensor of column indices in [0, n); then only those
+    columns are drawn, ``(rows, columns.numel())`` in their order, bit for
+    bit the same words as those columns of the whole draw (every word is
+    its own flat counter r*n + c): a process draws the part it holds."""
+    if columns is None:
+        flat = torch.arange(rows * n, dtype=torch.int64, device=device).reshape(rows, n)
+    else:
+        cols = columns.to(device=device, dtype=torch.int64).reshape(1, -1)
+        flat = torch.arange(rows, dtype=torch.int64, device=device).reshape(rows, 1) * n + cols
     b0, b1 = threefry2x32(key, flat >> 32, flat & _M32)
-    return (b0 ^ b1).reshape(rows, n)
+    return b0 ^ b1

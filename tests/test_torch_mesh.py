@@ -13,6 +13,7 @@ import torch
 from stark_anatomy_tpu.iop.stark import Stark as RefStark
 from stark_anatomy_tpu.models.rescue_prime import RescuePrime as RefRescuePrime
 from stark_anatomy_tpu.models.rescue_prime import RescuePrimeAir as RefRescuePrimeAir
+from stark_anatomy_tpu.ops import ntt as ref_ntt
 from stark_anatomy_tpu.parallel import merkle_sharded as ref_merkle
 from stark_anatomy_tpu.parallel import mesh as ref_mesh
 from stark_anatomy_tpu.parallel import ntt_sharded as ref_sharded
@@ -35,7 +36,10 @@ from stark_anatomy_tpu_torch.parallel import (
     sharded_lde,
     sharded_ntt,
 )
+from stark_anatomy_tpu_torch.iop import stark as stark_module
 from stark_anatomy_tpu_torch.parallel import mesh as meshmod
+from stark_anatomy_tpu_torch.parallel.mesh import block_start, holds_blocks, roll_left, upload_block
+from stark_anatomy_tpu_torch.parallel.ntt_sharded import gathered_powers
 from stark_anatomy_tpu_torch.reference import (
     cyclic_to_natural,
     from_reference_limbs,
@@ -176,12 +180,27 @@ def test_sharded_ntt_exchange_counts(layout_in, layout_out, exchanges):
     assert mesh.exchanges - before == 4
 
 
+@pytest.mark.parametrize("layout_in,layout_out", LAYOUTS)
+def test_sharded_ntt_on_more_than_128_shards_equals_the_single_device_transforms(layout_in, layout_out):
+    # S = 256 > 128: the column transforms leave grouped_ntt for one
+    # transform a column; the reference takes the same meshes
+    shards, n = 256, 1 << 16
+    x = _codeword(n, seed=12)
+    mesh = make_mesh(shards, "cpu")
+    given = _relayout(x, shards, to_cyclic=True) if layout_in == CYCLIC else x
+    jx = jnp.asarray(to_reference_limbs(x))
+    for inverse in (False, True):
+        got = sharded_ntt(given, mesh, inverse, layout_in, layout_out)
+        if layout_out == CYCLIC:
+            got = _relayout(got, shards, to_cyclic=False)
+        assert torch.equal(got, nttmod.intt(x) if inverse else nttmod.ntt(x))
+        _same(got, (ref_ntt.intt if inverse else ref_ntt.ntt)(jx))
+
+
 def test_sharded_ntt_rejects_what_the_four_step_does_not_take():
     # n = 32 on 8 shards: S | n but not n/S = 4
     with pytest.raises(ValueError, match="divide"):
         sharded_ntt(_codeword(32, seed=6), make_mesh(8, "cpu"))
-    with pytest.raises(ValueError, match="at most 128 shards"):
-        sharded_ntt(_codeword(1 << 16, seed=6), make_mesh(256, "cpu"))
     with pytest.raises(ValueError, match="cyclic->cyclic"):
         sharded_ntt(_codeword(256, seed=6), make_mesh(8, "cpu"), layout_in=CYCLIC, layout_out=CYCLIC)
     with pytest.raises(ValueError, match="unknown layout"):
@@ -339,19 +358,66 @@ def test_resume_under_a_mesh_gives_the_same_bytes(chain1, tmp_path):
                        checkpoint_dir=str(tmp_path)) == single_proof
 
 
-def test_prove_on_a_mesh_over_several_processes_is_refused_before_any_work(chain1, monkeypatch):
-    air, trace, boundary, _, _ = chain1
-    monkeypatch.setattr(meshmod.dist, "get_world_size", lambda group: 2)
-    monkeypatch.setattr(meshmod.dist, "get_rank", lambda group: 0)
-    mesh = Mesh(8, torch.device("cpu"), group=object())
-    assert mesh.world == 2 and mesh.local_shards == 4
+@pytest.fixture
+def one_process_group(tmp_path, monkeypatch):
+    """A torch.distributed group of this process alone (gloo), destroyed
+    after the test."""
+    _no_distributed_env(monkeypatch)
+    assert distributed.init("file://" + str(tmp_path / "store"), 1, 0, device="cpu")
+    yield distributed.world_group()
+    torch.distributed.destroy_process_group()
+
+
+def test_prove_through_a_one_process_group_gives_the_bytes_without_a_group(chain1, one_process_group):
+    # a mesh with a group takes the block-local prover, also for one process
+    air, trace, boundary, single_proof, ref_proof = chain1
+    mesh = make_mesh(8, "cpu", group=one_process_group)
+    assert (mesh.world, mesh.rank) == (1, 0)
     stark = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=mesh)
-    before = _build.launch_counts()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stark.prove(trace, boundary, randomizer_seed=SEED)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        stark.fri.prove(torch.zeros((4, stark.fri_domain_length), dtype=torch.int32), None)
-    assert mesh.exchanges == 0 and _build.launch_counts() == before
+    proof = stark.prove(trace, boundary, randomizer_seed=SEED)
+    # four exchanges a trace column's LDE, two a coset evaluation from
+    # cyclic coefficients: the zk randomizer, the excluded-row factor
+    assert mesh.exchanges == 4 * air.num_registers + 2 * 2
+    assert proof == single_proof == ref_proof
+    assert stark.verify(proof, boundary)
+
+
+@pytest.mark.parametrize("count,start", [(1, 0), (7, 5), (64, 0), (100, 29), (256, 1000)])
+def test_powers_from_a_start_exponent_are_a_block_of_the_longer_table(count, start):
+    base = GENERATOR
+    assert torch.equal(nttmod.powers(base, count, "cpu", start=start),
+                       nttmod.powers(base, start + count, "cpu")[:, start:])
+    with pytest.raises(ValueError, match="start"):
+        nttmod.powers(base, count, "cpu", start=-1)
+
+
+@pytest.mark.parametrize("n", [1, 2, 8, 512, 4096])
+def test_gathered_powers_equal_entries_of_the_whole_table(n):
+    # the block-local tables take base^e as a product of two entries of
+    # tables about sqrt(n) long; the values are the whole table's
+    rng = np.random.default_rng(n)
+    e = torch.from_numpy(rng.integers(0, n, size=300)).reshape(3, 100)
+    want = nttmod.powers(GENERATOR, n, "cpu").index_select(1, e.reshape(-1))
+    assert torch.equal(gathered_powers(GENERATOR, n, e), want)
+
+
+def test_block_helpers_without_a_group_see_one_whole_block():
+    mesh = make_mesh(8, "cpu")
+    x = _codeword(64, seed=13)
+    assert not holds_blocks(mesh) and not holds_blocks(None) and block_start(64, mesh) == 0
+    for e in (0, 5, 64, 70):
+        assert torch.equal(roll_left(x, e, mesh), torch.roll(x, -e, 1))
+    got = mesh.owner_gather([(x, [63, 0, 9, 9]), (x[:2].contiguous(), torch.tensor([3]))])
+    assert [tuple(g.shape) for g in got] == [(4, 4), (2, 1)]
+    assert torch.equal(got[0], x[:, [63, 0, 9, 9]]) and torch.equal(got[1], x[:2, [3]])
+    assert torch.equal(upload_block(to_numpy(x), mesh, "cpu"), x)
+
+
+@pytest.mark.parametrize("start,count", [(0, 96), (8, 40), (30, 7), (0, 12)])
+def test_a_tile_of_a_period_is_the_slice_of_the_repeated_period(start, count):
+    period = _codeword(12, seed=14)
+    want = period.repeat(1, (start + count) // 12 + 1)[:, start : start + count]
+    assert torch.equal(stark_module._tile(period, start, count), want)
 
 
 def test_reference_index_maps_are_inverse_and_match_the_documented_layout():
