@@ -43,6 +43,18 @@ exits non-zero:
            block-local prover that W processes run, here with W = 1: the
            bytes of the full phase's proof, verifies, cold and warm prove,
            phase split, exchanges, launches, peak device memory
+  big      the chunked big-domain prover (Stark._prove_big): chain 32765
+           forced through it (_BIG_F_MIN = 1, _BIG_CHUNK = 2^22): the bytes of
+           the full phase's proof, cold and warm prove beside full's, peak
+           device memory, phase split, launches; then chain 524285
+           (16 777 121 rows, O = 2^24, F = 2^28, the first F whose standard
+           prove does not fit the 80 GB card) at its real size: the coset
+           evaluation at F timed with its peak, then one prove, verify,
+           bytes, phase split, launches, peak device memory, host trace
+           seconds and host peak RSS; the excluded-row Horner of one chunk,
+           its launches counted and its values held to the plain field ops.
+           The kernel table holds every kernel at this prove's own shapes
+           too (big_cases)
   tune     (only when named in --phases) the NTT passes timed over cuts of
            the stages, tile widths and block sizes
   profile  (only when named in --phases) one warm full-size prove under
@@ -138,6 +150,9 @@ MESH_SHARDS = 8
 #: steps of the Fibonacci and MiMC traces of the airs phase: 1 048 481 rows,
 #: the omicron domain 2^20 that chain 32765 gives Rescue-Prime
 AIR_STEPS = 1048480
+#: chain of the big phase's real-size prove: 32 * 524285 + 1 = 16 777 121
+#: rows, O = 2^24, F = 2^28
+BIG_CHAIN = 524285
 GOLDEN = os.path.join(ROOT, "tests", "golden", "proof_rescue_chain1.json")
 
 
@@ -979,6 +994,148 @@ def phase_dist(chain: int = 32765, full_run: tuple | None = None, log_n: int = 2
     return info
 
 
+def phase_big(chain: int = 32765, full_run: tuple | None = None, full: dict | None = None,
+              big_chain: int = BIG_CHAIN) -> dict:
+    """The chunked big-domain prover. 1: chain `chain` forced through it
+    (_BIG_F_MIN = 1, _BIG_CHUNK = 2^22, restored after), held to the full
+    phase's proof: cold and warm prove, peak, phase split, launches. 2: chain
+    `big_chain` at its real size, where Stark routes to it by itself: the
+    coset evaluation of an F/4-coefficient polynomial at F timed with its
+    peak; then one prove, verify, bytes, phase split, launches, peak, host
+    trace seconds and host peak RSS; then the excluded-row Horner of one
+    chunk, its launches counted."""
+    import resource
+
+    from stark_anatomy_tpu_torch.iop import stark as stark_mod
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.ops import field_kernels as fk
+    from stark_anatomy_tpu_torch.ops import field_torch as ft
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+    from stark_anatomy_tpu_torch.ops.field import GENERATOR
+    from stark_anatomy_tpu_torch.ops.limbs import mont
+    from stark_anatomy_tpu_torch.utils import telemetry
+
+    def run(stark, trace, boundary) -> dict:
+        """One cold prove from an emptied cache and zeroed counts."""
+        nttmod.clear_twiddle_cache()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        telemetry.reset()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        proof = stark.prove(trace, boundary, randomizer_seed=b"full-v1")
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        return dict(proof=proof, seconds=seconds, launches=_build.launch_counts(),
+                    peak=torch.cuda.max_memory_allocated(),
+                    split={k: round(v["seconds"], 4) for k, v in telemetry.report().items()})
+
+    # 1. the forced path at the full phase's size
+    trace, boundary, want = full_inputs(chain, full_run)
+    rp, air, stark = rescue_setup(chain, 16, "cuda")
+    saved = stark_mod._BIG_F_MIN, stark_mod._BIG_CHUNK
+    stark_mod._BIG_F_MIN, stark_mod._BIG_CHUNK = 1, 1 << 22
+    try:
+        if not stark._big:
+            raise AssertionError("the forced Stark does not take the big path")
+        cold = run(stark, trace, boundary)
+        require_prove_path(cold["launches"], "the forced big path")
+        if cold["proof"] != want:
+            raise AssertionError("the forced big path's bytes differ from the full phase's proof")
+        if not stark.verify(cold["proof"], boundary):
+            raise AssertionError("the forced big path's proof does not verify")
+        telemetry.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        warm = stark.prove(trace, boundary, randomizer_seed=b"full-v1")
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        warm_split = {k: round(v["seconds"], 4) for k, v in telemetry.report().items()}
+        if warm != want:
+            raise AssertionError("two forced big-path proves with one seed differ")
+        forced = dict(
+            chain=chain, fri_domain=stark.fri_domain_length, chunk=stark._big_chunk_len(),
+            proof_bytes=len(cold["proof"]), equals_full_proof=True, verifies=True,
+            cold_prove_s=round(cold["seconds"], 3), warm_prove_s=round(warm_s, 3),
+            full_warm_prove_s=full["warm_prove_s"] if full else None,
+            peak_device_bytes=cold["peak"],
+            full_peak_device_bytes=full["peak_device_bytes"] if full else None,
+            launches=cold["launches"], phase_split_warm_s=warm_split,
+        )
+    finally:
+        stark_mod._BIG_F_MIN, stark_mod._BIG_CHUNK = saved
+    del trace, boundary, want, stark, cold, warm
+
+    # 2. the real size
+    rss_before = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+    t0 = time.perf_counter()
+    rp, air, stark = rescue_setup(big_chain, 16, "cuda")
+    trace = rp.trace_bytes(11, big_chain)
+    trace_s = time.perf_counter() - t0
+    boundary = air.boundary_constraints(int.from_bytes(trace[-1, 0].tobytes(), "little"))
+    f = stark.fri_domain_length
+    if not stark._big:
+        raise AssertionError(f"chain {big_chain} (F = {f}) does not take the big path")
+
+    # the coset evaluation at F (the trace LDE's and the zk codeword's), on
+    # the empty card; warm: its twiddle table cached by the first call
+    nttmod.clear_twiddle_cache()
+    torch.cuda.empty_cache()
+    coeffs = fk.to_mont(edge_words(f // 4, 31, canonical=True))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    nttmod.coset_evaluate(coeffs, f, GENERATOR)
+    torch.cuda.synchronize()
+    coset = {"cold_host_ms": (time.perf_counter() - t0) * 1e3,
+             "peak_bytes_above_input": torch.cuda.max_memory_allocated() - base,
+             "warm_ms": time_ms(lambda: nttmod.coset_evaluate(coeffs, f, GENERATOR), reps=2)}
+    del coeffs
+    nttmod.clear_twiddle_cache()
+    torch.cuda.empty_cache()
+
+    big = run(stark, trace, boundary)
+    require_prove_path(big["launches"], "the big path")
+    t0 = time.perf_counter()
+    accepted = stark.verify(big["proof"], boundary)
+    verify_s = time.perf_counter() - t0
+    if not accepted:
+        raise AssertionError(f"the F = {f} proof does not verify")
+    if stark.verify(tamper_leaf(big["proof"]), boundary):
+        raise AssertionError(f"a tampered F = {f} proof verified")
+    blk = stark._big_chunk_len()
+    # the excluded-row factor's Horner (_comb_chunked's, once a chunk) on one
+    # chunk of points: its launches counted, its values held to the plain ops
+    excluded = stark._excluded_coeffs()
+    xc = fk.to_mont(edge_words(blk, 37, canonical=True))
+    _build.reset_launch_counts()
+    got = stark_mod._horner(excluded, xc, torch.empty_like(xc))
+    torch.cuda.synchronize()
+    horner = {k: v for k, v in _build.launch_counts().items() if v}
+    want = ft.mont_mul(xc, mont(excluded[-1]))
+    for d in range(len(excluded) - 2, -1, -1):
+        if d < len(excluded) - 2:
+            want = ft.mont_mul(want, xc)
+        want = ft.add(want, mont(excluded[d]))
+    if not torch.equal(got, want):
+        raise AssertionError("the excluded-row Horner differs from the plain field ops")
+    del xc, got, want
+    info = dict(
+        forced=forced, chain=big_chain, rows=stark.trace_length, omicron_domain=stark.omicron_domain_length,
+        fri_domain=f, chunk=blk, chunks=f // blk, registers=stark.num_registers,
+        horner_coefficients=len(excluded), horner_launches_per_chunk=horner,
+        host_trace_s=round(trace_s, 3), coset_evaluation=coset, prove_s=round(big["seconds"], 3),
+        verify_s=round(verify_s, 3), verifies=True, tampered_rejected=True, proof_bytes=len(big["proof"]),
+        phase_split_s=big["split"], launches=big["launches"], peak_device_bytes=big["peak"],
+        host_peak_rss_bytes_before=rss_before,
+        host_peak_rss_bytes=resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024,
+    )
+    emit("big", **info)
+    return info
+
+
 def table_cases(n: int, registers: int) -> tuple:
     """The kernels' calls at the shapes a prove with FRI domain `n` and
     `registers` trace columns gives them: name -> (kernel call, plain call,
@@ -1078,15 +1235,77 @@ def table_cases(n: int, registers: int) -> tuple:
     return cases, shapes
 
 
+def in_pieces(fn, *args, piece: int = 1 << 24) -> torch.Tensor:
+    """fn of column-independent (k, n) arguments, applied to pieces of
+    `piece` columns and concatenated: a plain version whose int64
+    temporaries would not fit the card in one piece."""
+    n = args[0].shape[1]
+    return torch.cat([fn(*(a[:, i : i + piece] for a in args)) for i in range(0, n, piece)], dim=1)
+
+
+def big_cases(f: int, blk: int, registers: int):
+    """The kernels' calls at the shapes the big path (FRI domain f, chunks of
+    blk columns, `registers` trace columns) gives them: yields (name, shape,
+    kernel call, plain call) one case at a time, the inputs of each group
+    of cases made just before it. The field ops at a chunk and at f (the F-point scalings
+    and conversions), fp_batch_inv at a chunk (one a _bq_domain_chunk),
+    ntt_block and every ntt_stage pass of the f-point coset transforms,
+    blake2b_planes on a chunk's pair leaves (bq: 32 * registers B, zk and
+    FRI round 0: 32 B), on a chunk's first node level (128 B) and on FRI
+    round 1's standard commit (32 B x f/4). The plain versions at f run in
+    pieces (in_pieces; the NTT's: ntt_kernels.PLAIN_PIECE butterflies)."""
+    from stark_anatomy_tpu_torch.ops import blake2b as b2
+    from stark_anatomy_tpu_torch.ops import blake2b_kernels as bk
+    from stark_anatomy_tpu_torch.ops import field_kernels as fk
+    from stark_anatomy_tpu_torch.ops import field_torch as ft
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+    from stark_anatomy_tpu_torch.ops import ntt_kernels
+
+    ops = (("fp_add", fk.add, ft.add), ("fp_sub", fk.sub, ft.sub), ("fp_mont_mul", fk.mont_mul, ft.mont_mul))
+    x = edge_words(f, 43, canonical=True)  # the edge values up front
+    for n in (blk, f):
+        a = x[:, :n].contiguous()
+        b = a.roll(5, dims=1)
+        for name, kernel, plain in ops:
+            yield name, f"n={n}", lambda: kernel(a, b), lambda: in_pieces(plain, a, b)
+        del a, b
+    xi = inv_input(blk, 45)
+    yield "fp_batch_inv", f"n={blk}", lambda: fk.inv(xi), lambda: ft.inv(xi)
+    del xi
+
+    log_f = f.bit_length() - 1
+    plan = ntt_kernels.pass_plan(log_f)
+    log_block = plan[0][1]
+    tw = nttmod._twiddles(f, False, "cuda")
+    yield ("ntt_block", f"n={f} s=1..{log_block}", lambda: ntt_kernels.ntt_block(x, tw, log_block),
+           lambda: ntt_kernels.ntt_block_plain(x, tw, log_block))
+    y = ntt_kernels.ntt_block(x, tw, log_block)
+    del x
+    for s, last in plan[1:]:
+        yield ("ntt_stage", f"n={f} s={s}..{last}", lambda: ntt_kernels.ntt_stage(y.clone(), tw, s, last),
+               lambda: ntt_kernels.ntt_stages_plain(y, tw, s, last))
+        ntt_kernels.ntt_stage(y, tw, s, last)  # the next pass's input
+    del y, tw
+    nttmod.clear_twiddle_cache()
+
+    for msg_len, leaves in ((32 * registers, blk), (32, blk), (128, blk // 2), (32, f // 4)):
+        msg = torch.cat([edge_words(leaves, 50 + k) for k in range(msg_len // 16)], dim=0)
+        yield ("blake2b_planes", f"{msg_len} B x {leaves}", lambda: bk.blake2b_planes(msg, msg_len),
+               lambda: in_pieces(lambda m: b2.blake2b_planes_plain(m, msg_len), msg))
+        del msg
+
+
 def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
-                inv: dict | None = None, dist: dict | None = None) -> list:
+                inv: dict | None = None, dist: dict | None = None, big: dict | None = None) -> list:
     """Each kernel held against its plain version at the shapes of EVERY
     driven path (the Rescue-Prime prove of the full phase and, where the airs
     phase ran, the Fibonacci and MiMC proves: each path's own FRI domain,
     late NTT stages and leaf width), then timed beside
     the plain version at the full phase's shapes; bounds from those sizes.
     `launches` is the full phase's count, for a mesh-only kernel the mesh
-    phase's; the airs, mesh and dist phases' counts stand beside it."""
+    phase's; the airs, mesh, dist and big phases' counts stand beside it.
+    Where the big phase ran, every kernel it launched is held at that
+    prove's own shapes too (big_cases), before the other paths' tables."""
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
     from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops.field import PRIME
@@ -1108,6 +1327,11 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
         return compared[(name, shape)]
 
     compared_at = {name: [] for name in OPS_PER_UNIT}
+    if big:
+        for name, shape, kernel, plain in big_cases(big["fri_domain"], big["chunk"], big["registers"]):
+            compared_at[name].append({"paths": ["big"], "shape": shape,
+                                      "max_abs_err": compare(name, kernel, plain, shape)})
+        torch.cuda.empty_cache()
     for key in sorted(set(paths.values()) - {main}) + [main]:
         cases, shapes = table_cases(*key)
         for name, case in cases.items():
@@ -1142,6 +1366,9 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
             table[-1]["launches_mesh"] = mesh["launches"][name]
         if dist:
             table[-1]["launches_dist"] = dist["launches"][name]
+        if big:
+            table[-1]["launches_big"] = big["launches"][name]
+            table[-1]["launches_big_forced"] = big["forced"]["launches"][name]
     # the whole n-point transform (ntt_block and the ntt_stage passes of
     # pass_plan) beside the least time the card could take for it
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
@@ -1260,7 +1487,7 @@ def phase_tune(out_dir: str | None) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full,inv,mesh,dist")
+    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full,inv,mesh,dist,big")
     ap.add_argument("--verbose-build", action="store_true", help="print ptxas resource usage")
     ap.add_argument("--chain", type=int, default=32765, help="chain length of the full phase")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json / profile.json")
@@ -1297,17 +1524,20 @@ def main() -> int:
             phase_mesh(args.chain)
         if "dist" in phases:
             phase_dist(args.chain)
+        if "big" in phases:
+            phase_big(args.chain)
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
     full, full_run = phase_full(args.chain)
     inv = phase_inv() if "inv" in phases else None
     mesh = phase_mesh(args.chain, full_run) if "mesh" in phases else None
     dist = phase_dist(args.chain, full_run) if "dist" in phases else None
+    big = phase_big(args.chain, full_run, full) if "big" in phases else None
     del full_run
     if "kernels" not in phases:
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
-    table = phase_table(results, full, airs, mesh, inv, dist)
+    table = phase_table(results, full, airs, mesh, inv, dist, big)
     if "profile" in phases:
         phase_profile(args.chain, args.out, full["warm_prove_s"])
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
@@ -1315,7 +1545,7 @@ def main() -> int:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
             json.dump({"gpu": gpu_name_and_limit(), "full": full, "inv": inv, "airs": airs,
-                       "mesh": mesh, "dist": dist, "kernels": table},
+                       "mesh": mesh, "dist": dist, "big": big, "kernels": table},
                       fh, indent=1)
     print(json.dumps({"kernels": table}), flush=True)
     print(gpu_name_and_limit(), flush=True)

@@ -24,7 +24,12 @@ Szepieniec's "Anatomy of a STARK"), same transcript:
   mesh and the verifier never looks at it;
 - with ``checkpoint_dir`` every committed round's standard-form codeword is
   snapshotted (utils/checkpoint.py, stage ``fri-r{r}``), host-tail rounds
-  included, and a later call replays the completed rounds from disk.
+  included, and a later call replays the completed rounds from disk;
+- for the chunked big-domain prover (iop/stark.py ``_prove_big``,
+  ``prove(big_chunk=...)``) round 0 commits through iop/merkle.py
+  ``commit_columns_chunked`` (upper levels on the host, bottom levels rebuilt
+  on opening) and moves its codeword and tree to the host once round 1 is
+  committed; the queries then read host arrays. Neither changes a byte.
 
 Transcript item layout (all JSON-safe, see utils/encoding.py):
   {"fri_root": b64}                            per round
@@ -50,6 +55,7 @@ from stark_anatomy_tpu_torch import native
 from stark_anatomy_tpu_torch.iop.merkle import (
     MerkleTree,
     commit_columns,
+    commit_columns_chunked,
     gather_requests,
     verify_multiproof,
 )
@@ -67,6 +73,7 @@ from stark_anatomy_tpu_torch.ops.field import (
 from stark_anatomy_tpu_torch.ops.limbs import (
     ints_to_words,
     mont,
+    to_numpy,
     words_to_ints,
 )
 from stark_anatomy_tpu_torch.utils import checkpoint
@@ -210,6 +217,7 @@ class Fri:
         proof_stream: ProofStream,
         checkpoint_dir: str | None = None,
         checkpoint_meta: dict | None = None,
+        big_chunk: int | None = None,
     ) -> List[int]:
         """Commit + query phases. Returns the top-level query indices.
 
@@ -221,7 +229,13 @@ class Fri:
         standard-form codeword is snapshotted; a rerun with the same meta
         replays the completed rounds from disk. Trees are re-hashed from the
         stored codewords (commitment is deterministic), so resume skips every
-        completed fold and produces a byte-identical transcript."""
+        completed fold and produces a byte-identical transcript.
+
+        big_chunk: set by the chunked big-domain prover (no mesh), whose
+        round-0 codeword does not fit the card beside its whole tree: round
+        0 commits through commit_columns_chunked in chunks of big_chunk
+        leaves and moves, with its tree, to the host once round 1 is
+        committed (or at the end of the device rounds)."""
         mesh = self.mesh
         world = mesh.world if holds_blocks(mesh) else 1
         if codeword_mont.shape[-1] * world != self.domain_length:
@@ -259,7 +273,7 @@ class Fri:
                     tree = self._commit_host([int(v) for v in words_to_ints(words)])
                 else:
                     standard = upload_block(words, mesh, device)
-                    tree = commit([standard], mesh)
+                    tree = self._commit_one(standard, big_chunk if r == 0 else None)
                 codewords.append(standard)
                 trees.append(tree)
                 proof_stream.push({"fri_root": digest_to_item(tree.root)})
@@ -283,11 +297,13 @@ class Fri:
                                     proof_stream, checkpoint_dir, checkpoint_meta, mesh)
                 break
             standard = fk.from_mont(codeword)
-            tree = commit([standard], mesh)
+            tree = self._commit_one(standard, big_chunk if r == 0 else None)
             if checkpoint_dir is not None:
                 snapshot(checkpoint_dir, f"fri-r{r}", [], {"codeword": standard}, checkpoint_meta, mesh)
             codewords.append(standard)
             trees.append(tree)
+            if big_chunk and r == 1:
+                self._offload_round0(codewords, trees)
             proof_stream.push({"fri_root": digest_to_item(tree.root)})
             if r == rounds - 1:
                 break
@@ -295,6 +311,8 @@ class Fri:
             codeword = fold(codeword, alpha, offset, omega, mesh)
             omega = omega * omega % PRIME
             offset = offset * offset % PRIME
+        if big_chunk and isinstance(codewords[0], torch.Tensor):
+            self._offload_round0(codewords, trees)
 
         last = codewords[-1]
         last_values = words_to_ints(last if isinstance(last, np.ndarray) else host_gather(last, mesh))
@@ -326,13 +344,8 @@ class Fri:
             indices = [i % (n // 2) for i in indices]
             a_idx = list(indices)
             b_idx = [i + n // 2 for i in indices]
-            entry: dict = {"r": r, "a_idx": a_idx}
-            cur = codewords[r]
-            if isinstance(cur, np.ndarray):
-                entry["cols"] = cur[:, a_idx + b_idx]
-            else:
-                entry["slot"] = len(requests)
-                requests.append((cur, a_idx + b_idx))
+            entry: dict = {"r": r, "a_idx": a_idx, "slot": len(requests)}
+            requests.append((codewords[r], a_idx + b_idx))
             reqs, fill = trees[r]._prefetch_plan(a_idx)
             entry["tree_base"], entry["tree_count"], entry["fill"] = len(requests), len(reqs), fill
             requests.extend(reqs)
@@ -340,11 +353,9 @@ class Fri:
         with _tphase("query-gather"):
             fetched = gather_requests(requests, mesh)
         for entry in pending:
-            if "slot" in entry:
-                entry["cols"] = fetched[entry["slot"]]
             base = entry["tree_base"]
             entry["fill"](fetched[base : base + entry["tree_count"]])
-            vals = words_to_ints(entry["cols"])
+            vals = words_to_ints(fetched[entry["slot"]])
             k = len(entry["a_idx"])
             proof_stream.push(
                 {"fri_points": [[felt_to_item(int(vals[s])), felt_to_item(int(vals[s + k]))] for s in range(k)]}
@@ -356,6 +367,20 @@ class Fri:
         if rounds > 1:
             proof_stream.push({"fri_multiproofs": multiproofs})
         return top_indices
+
+    def _commit_one(self, standard: torch.Tensor, chunk: int | None) -> MerkleTree:
+        """The pair-leaf tree of one committed round's codeword: chunked in
+        chunks of `chunk` leaves when given, else commit()."""
+        if chunk:
+            return commit_columns_chunked([standard], chunk)
+        return commit([standard], self.mesh)
+
+    @staticmethod
+    def _offload_round0(codewords, trees) -> None:
+        """Move round 0's codeword and tree to the host; its queries then
+        read the host arrays."""
+        codewords[0] = to_numpy(codewords[0])
+        trees[0].offload_to_host([codewords[0]])
 
     @staticmethod
     def _commit_host(values: List[int]) -> MerkleTree:

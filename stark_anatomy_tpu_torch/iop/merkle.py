@@ -21,6 +21,16 @@ little-endian canonical encodings of its row's elements; a PAIR leaf j of
 length-n columns packs row j of every column, then row j + n/2 of every
 column. In this port's storage a column's four word planes ARE its leaf
 message words, so building the message is a concatenation of planes.
+
+For codewords too long to commit in one piece (the chunked big-domain
+prover, iop/stark.py), ``commit_columns_chunked`` / ``ChunkedPairCommit``
+hash aligned chunks of pair columns on the device and keep only the levels
+above ``prune_levels`` (on the host): the leaf level and the levels just
+above it are dropped (``None``) and an opening rebuilds the aligned block of
+leaves under each opened leaf from the codeword columns the tree keeps
+(``leaf_columns``, device tensors or host numpy), one batch for all blocks.
+``MerkleTree.offload_to_host`` moves the device levels to the host, and
+repoints the leaf columns at their host copies.
 """
 
 from __future__ import annotations
@@ -32,11 +42,13 @@ import numpy as np
 import torch
 
 from stark_anatomy_tpu_torch.ops.blake2b_kernels import blake2b_planes, merkle_node_hash
-from stark_anatomy_tpu_torch.ops.limbs import NUM_WORDS, to_numpy
+from stark_anatomy_tpu_torch.ops.limbs import NUM_WORDS, require_device, to_numpy, to_tensor
 
 __all__ = [
+    "ChunkedPairCommit",
     "MerkleTree",
     "commit_columns",
+    "commit_columns_chunked",
     "pair_columns",
     "gather_requests",
     "multiproof_plan",
@@ -46,6 +58,9 @@ __all__ = [
 
 #: levels of at most this many nodes are reduced on the host with hashlib.
 _HOST_TOP = 16
+#: fewest leaves a ChunkedPairCommit chunk may have; trees with smaller
+#: chunks are committed whole (commit_columns_chunked).
+MIN_CHUNK_LEAVES = 2048
 
 
 def _is_pow2(n: int) -> bool:
@@ -79,43 +94,71 @@ def _host_hash_level(rows: np.ndarray) -> np.ndarray:
 
 
 def gather_requests(requests, mesh=None) -> List[np.ndarray]:
-    """Execute gather requests [(tensor (k, n), index list)] as ONE
+    """Execute gather requests [(array (k, n), index list)]: host numpy
+    arrays are indexed where they are, every tensor goes through ONE
     concatenated device gather and ONE device->host copy. Returns, per
     request, a (k, len(indices)) uint32 numpy array.
 
     mesh: a parallel.Mesh whose group spreads the codewords over processes;
     every tensor is then this process's block of a block-sharded array, the
-    indices are global, and all requests go through ONE
+    indices are global, and all tensor requests go through ONE
     ``Mesh.owner_gather`` (one all_reduce). Levels a tree keeps on the
     host never become requests (MerkleTree._prefetch_plan)."""
-    if not requests:
-        return []
+    out: List = [None] * len(requests)
+    on_device = []
+    for k, (arr, idx) in enumerate(requests):
+        if isinstance(arr, np.ndarray):
+            out[k] = arr[:, np.asarray(idx, dtype=np.int64)]
+        else:
+            on_device.append(k)
+    if not on_device:
+        return out
+    dev_requests = [requests[k] for k in on_device]
     if mesh is not None and mesh.group is not None:
-        parts = [p.reshape(-1) for p in mesh.owner_gather(requests)]
+        parts = [p.reshape(-1) for p in mesh.owner_gather(dev_requests)]
     else:
         parts = []
-        for arr, idx in requests:
+        for arr, idx in dev_requests:
             ix = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=arr.device)
             parts.append(arr.index_select(1, ix).reshape(-1))
     host = to_numpy(torch.cat(parts))
-    out, off = [], 0
-    for arr, idx in requests:
+    off = 0
+    for k, (arr, idx) in zip(on_device, dev_requests):
         size = arr.shape[0] * len(idx)
-        out.append(host[off : off + size].reshape(arr.shape[0], len(idx)))
+        out[k] = host[off : off + size].reshape(arr.shape[0], len(idx))
         off += size
     return out
 
 
+def _host_rows(planes: torch.Tensor) -> np.ndarray:
+    """(16, m) int32 digest planes (any device) -> (m, 16) '<u4' host rows."""
+    return np.ascontiguousarray(to_numpy(planes).T).astype("<u4")
+
+
 class MerkleTree:
     """Committed tree. ``levels[l]`` holds level l (leaves at 0) either as a
-    ``(16, m) int32`` digest-plane tensor or, for the small top, as an
+    ``(16, m) int32`` digest-plane tensor or, on the host, as an
     ``(m, 16) '<u4'`` numpy array of digest rows; ``levels[-1]`` is the root
-    row. Digests an opening needs are gathered in one batch and cached."""
+    row. Digests an opening needs are gathered in one batch and cached.
 
-    def __init__(self, levels: List, pair_leaves: bool = False):
+    The bottom levels may be dropped (``None``, levels 0 .. k-1) when the
+    tree keeps the codeword columns it committed (``leaf_columns``: device
+    tensors or host numpy, full length; pair leaves when ``pair_leaves``).
+    Every sibling an opening of leaf i needs below level k is a node of the
+    aligned block of 2^k leaves containing i: such blocks are rebuilt from
+    the columns, all missing ones in one batch hashed on ``device``, and
+    kept."""
+
+    def __init__(self, levels: List, pair_leaves: bool = False, leaf_columns: List | None = None,
+                 device=None):
+        if levels[0] is None and leaf_columns is None:
+            raise ValueError("dropped leaf level requires leaf_columns")
         self.levels = levels
         self.pair_leaves = pair_leaves
+        self.leaf_columns = leaf_columns
+        self.device = device
         self._fetch_cache: dict = {}
+        self._blocks: dict = {}  # block index -> its rebuilt levels 0 .. k-1 as host rows
 
     @classmethod
     def commit(cls, leaves: torch.Tensor, pair_leaves: bool = False) -> "MerkleTree":
@@ -130,12 +173,12 @@ class MerkleTree:
         while cur.shape[1] > _HOST_TOP:
             levels.append(cur)
             cur = merkle_node_hash(cur)
-        rows = np.ascontiguousarray(to_numpy(cur).T).astype("<u4")
+        rows = _host_rows(cur)
         while rows.shape[0] > 1:
             levels.append(rows)
             rows = _host_hash_level(rows)
         levels.append(rows)
-        return cls(levels, pair_leaves=pair_leaves)
+        return cls(levels, pair_leaves=pair_leaves, device=leaves.device)
 
     @classmethod
     def commit_bytes(cls, leaves: Sequence[bytes]) -> "MerkleTree":
@@ -151,9 +194,18 @@ class MerkleTree:
         return cls(levels)
 
     @property
+    def dropped_levels(self) -> int:
+        """k: levels 0 .. k-1 are not stored."""
+        k = 0
+        while self.levels[k] is None:
+            k += 1
+        return k
+
+    @property
     def num_leaves(self) -> int:
-        lv = self.levels[0]
-        return int(lv.shape[1] if isinstance(lv, torch.Tensor) else lv.shape[0])
+        k = self.dropped_levels
+        lv = self.levels[k]
+        return int(lv.shape[1] if isinstance(lv, torch.Tensor) else lv.shape[0]) << k
 
     @property
     def height(self) -> int:
@@ -163,15 +215,62 @@ class MerkleTree:
     def root(self) -> bytes:
         return np.ascontiguousarray(self.levels[-1][0], dtype="<u4").tobytes()
 
+    def offload_to_host(self, leaf_columns: List | None = None) -> None:
+        """Move every device level to host rows, freeing the device memory;
+        openings then read the host arrays. A tree that keeps its leaf
+        columns takes their host copies (``leaf_columns``) in their place."""
+        if self.leaf_columns is not None:
+            if leaf_columns is None:
+                raise ValueError("a tree that keeps its leaf columns needs their host copies")
+            self.leaf_columns = list(leaf_columns)
+        self.levels = [lv if lv is None or isinstance(lv, np.ndarray) else _host_rows(lv)
+                       for lv in self.levels]
+
+    def _rebuild_blocks(self, blocks) -> None:
+        """Rebuild the dropped levels of the given aligned leaf blocks (2^k
+        leaves each) from leaf_columns: ONE gather of every block's rows, one
+        batch of leaf hashes and one reduction a level, on self.device."""
+        k = self.dropped_levels
+        todo = sorted(set(blocks) - set(self._blocks))
+        if not todo:
+            return
+        span = 1 << k
+        idx = (np.asarray(todo, dtype=np.int64)[:, None] * span + np.arange(span)).reshape(-1)
+        rows = np.concatenate([idx, idx + self.num_leaves]) if self.pair_leaves else idx
+        parts = gather_requests([(c, rows) for c in self.leaf_columns])
+        m = idx.shape[0]
+        planes = [p[:, :m] for p in parts] + ([p[:, m:] for p in parts] if self.pair_leaves else [])
+        msg = to_tensor(np.concatenate(planes, axis=0), self.device)
+        level = blake2b_planes(msg, 16 * len(planes))
+        for lv in range(k):
+            host = _host_rows(level)
+            width = span >> lv
+            for pos, b in enumerate(todo):
+                self._blocks.setdefault(b, []).append(host[pos * width : (pos + 1) * width])
+            if lv + 1 < k:
+                level = merkle_node_hash(level)
+
+    def _dropped_node(self, level: int, index: int) -> bytes:
+        k = self.dropped_levels
+        b = index >> (k - level)
+        self._rebuild_blocks([b])
+        return self._blocks[b][level][index - (b << (k - level))].tobytes()
+
     def _prefetch_plan(self, leaf_indices: Sequence[int]):
         """(requests, fill) for the sibling digests the given opens need.
 
         requests are un-executed (tensor, indices) descriptors for
         gather_requests, so a caller can funnel MANY trees' needs through one
         gather and one transfer; fill(results) then populates the digest
-        cache, in order. Host-resident levels are read directly."""
+        cache, in order. Host-resident levels are read directly; the blocks
+        under the opened leaves are rebuilt here, in one batch, when the
+        tree dropped its bottom levels."""
+        k = self.dropped_levels
+        if k:
+            self._rebuild_blocks({i >> k for i in leaf_indices})
         keys, reqs = [], []
-        for level, arr in enumerate(self.levels[:-1]):
+        for level in range(k, self.height):
+            arr = self.levels[level]
             need = sorted({(i >> level) ^ 1 for i in leaf_indices})
             need = [i for i in need if (level, i) not in self._fetch_cache]
             if not need:
@@ -200,6 +299,8 @@ class MerkleTree:
         key = (level, index)
         if key not in self._fetch_cache:
             arr = self.levels[level]
+            if arr is None:
+                return self._dropped_node(level, index)
             if isinstance(arr, np.ndarray):
                 self._fetch_cache[key] = arr[index].tobytes()
             else:
@@ -221,6 +322,12 @@ class MerkleTree:
             path.append(self._fetch(level, index ^ 1))
             index >>= 1
         return path
+
+    def open_many(self, indices: Sequence[int]) -> List[List[bytes]]:
+        """Authentication paths of several leaves, their digests gathered in
+        one batch."""
+        self._prefetch([int(i) for i in indices])
+        return [self.open(int(i)) for i in indices]
 
     def open_multi(self, indices: Sequence[int]) -> List[bytes]:
         """Deduplicated batch opening: the multiproof_plan node digests, to
@@ -249,6 +356,91 @@ def commit_columns(columns: Sequence[torch.Tensor], pair: bool = False) -> Merkl
     cols = pair_columns(columns) if pair else list(columns)
     leaves = blake2b_planes(leaf_word_planes(cols), 16 * len(cols))
     return MerkleTree.commit(leaves, pair_leaves=pair)
+
+
+class ChunkedPairCommit:
+    """Streaming PAIR-leaf commit whose tree keeps only its upper levels,
+    on the host.
+
+    Feed aligned chunks of ``chunk_leaves`` leaves as PRE-SPLIT pair columns
+    (every column's rows of the chunk from the first half, then every
+    column's rows from the second half: the pair_columns order) through
+    add(), in leaf order. Each chunk is hashed with blake2b_planes and reduced
+    to its subtree root by merkle_node_hash on the device; its levels above
+    ``prune_levels`` go to the host. finish() hashes the chunk roots to the
+    root with hashlib and returns the tree, with levels 0 .. prune_levels
+    dropped: openings rebuild them from the leaf columns (MerkleTree). Aligned
+    chunk reductions ARE the blocks of the whole tree, so the root and every
+    opening equal commit_columns(..., pair=True)."""
+
+    def __init__(self, chunk_leaves: int, msg_len: int, prune_levels: int = 10):
+        if chunk_leaves < MIN_CHUNK_LEAVES or not _is_pow2(chunk_leaves):
+            raise ValueError(f"chunk_leaves must be a power of two >= {MIN_CHUNK_LEAVES}")
+        self.chunk_leaves = chunk_leaves
+        self.msg_len = msg_len
+        self.chunk_levels = chunk_leaves.bit_length() - 1
+        # the chunk root level is always kept
+        self.prune_levels = min(prune_levels, self.chunk_levels - 1)
+        self.device = None
+        self._per_level: List[List[np.ndarray]] = [[] for _ in range(self.chunk_levels)]
+        self._chunk_roots: List[np.ndarray] = []
+
+    def add(self, pair_cols_chunk: Sequence[torch.Tensor]) -> None:
+        msg = leaf_word_planes(pair_cols_chunk)
+        if msg.shape[1] != self.chunk_leaves:
+            raise ValueError(f"expected chunks of {self.chunk_leaves} leaves, got {msg.shape[1]}")
+        self.device = msg.device
+        level = blake2b_planes(msg, self.msg_len)
+        del msg
+        kept = []
+        for lv in range(1, self.chunk_levels + 1):
+            level = merkle_node_hash(level)
+            if lv > self.prune_levels:
+                kept.append(level)
+        host = to_numpy(torch.cat(kept, dim=1))  # one copy for the chunk's kept levels
+        off = 0
+        for lv in range(self.prune_levels + 1, self.chunk_levels + 1):
+            width = self.chunk_leaves >> lv
+            rows = np.ascontiguousarray(host[:, off : off + width].T).astype("<u4")
+            off += width
+            (self._chunk_roots if lv == self.chunk_levels else self._per_level[lv]).append(rows)
+
+    def finish(self, leaf_columns: List) -> MerkleTree:
+        """The tree of every chunk added; leaf_columns are the committed
+        full-length columns (device tensors or host numpy)."""
+        levels: List = [None] * (self.prune_levels + 1)
+        for lv in range(self.prune_levels + 1, self.chunk_levels):
+            levels.append(np.concatenate(self._per_level[lv], axis=0))
+        rows = np.concatenate(self._chunk_roots, axis=0)
+        while rows.shape[0] > 1:
+            levels.append(rows)
+            rows = _host_hash_level(rows)
+        levels.append(rows)
+        return MerkleTree(levels, pair_leaves=True, leaf_columns=list(leaf_columns), device=self.device)
+
+
+def commit_columns_chunked(columns: Sequence, chunk_leaves: int = 1 << 22, device=None) -> MerkleTree:
+    """PAIR-leaf commit of full-length standard-form columns through
+    ChunkedPairCommit: the root and openings of commit_columns(..., pair=True).
+
+    columns: (4, n) device tensors, or host numpy uint32 arrays; host columns
+    are sliced on the host, uploaded one chunk at a time to `device` (default
+    "cuda") and kept as the tree's leaf_columns. Trees with fewer than MIN_CHUNK_LEAVES
+    leaves a chunk are committed whole by commit_columns."""
+    on_host = isinstance(columns[0], np.ndarray)
+    device = require_device(device or "cuda") if on_host else columns[0].device
+    n = int(columns[0].shape[-1])
+    half = n // 2
+    n_chunks = max(1, half // max(chunk_leaves, 1))
+    chunk_leaves = half // n_chunks
+    if chunk_leaves < MIN_CHUNK_LEAVES:
+        return commit_columns([to_tensor(c, device) if on_host else c for c in columns], pair=True)
+    builder = ChunkedPairCommit(chunk_leaves, 32 * len(columns))
+    for k in range(n_chunks):
+        lo = [c[:, k * chunk_leaves : (k + 1) * chunk_leaves] for c in columns]
+        hi = [c[:, half + k * chunk_leaves : half + (k + 1) * chunk_leaves] for c in columns]
+        builder.add([to_tensor(p, device) for p in lo + hi] if on_host else lo + hi)
+    return builder.finish(columns)
 
 
 def multiproof_plan(indices: Sequence[int], height: int) -> List[Tuple[int, int]]:

@@ -59,6 +59,24 @@ one ``owner_gather``; domains too small for the four-step transform
 proof bytes of the prover without a mesh, and the verifier never looks at
 it.
 
+From ``_BIG_F_MIN`` on (F = 2^28: the first FRI domain whose standard
+prove does not fit an 80 GB card) a prove without a mesh takes the CHUNKED
+big-domain path (``_prove_big``): the zk randomizer codeword and its commit
+first, on the empty card (its root still enters the transcript after
+bq_root); the trace LDE; the boundary quotients in mirrored pairs of domain
+chunks of ``_BIG_CHUNK`` columns, streamed to host numpy and committed chunk
+by chunk (iop/merkle.py ``ChunkedPairCommit``: upper levels on the host,
+bottom levels rebuilt on opening); the transition quotients and the
+combination chunk by chunk into one preallocated codeword, the
+boundary-quotient terms re-derived per chunk from the trace LDE; then the
+zk codeword to the host, and FRI (its round 0 committed chunked and moved to
+the host, iop/fri.py ``prove(big_chunk=)``). Every value is pointwise, so
+the chunks change no byte. The F-point coset evaluations stay whole: at
+F = 2^28 they fit the card beside the rest. A mesh WITHOUT a process group at F >= _BIG_F_MIN is refused
+(ValueError, before any allocation): the big path has no mesh form; prove
+without a mesh, or through a process group, whose prove stays block-local
+at any F.
+
 ``prove(checkpoint_dir=...)`` snapshots the expensive intermediates before
 FRI and after every FRI round (utils/checkpoint.py) and resumes from them.
 
@@ -84,7 +102,13 @@ import numpy as np
 import torch
 
 from stark_anatomy_tpu_torch.iop.fri import Fri, commit, snapshot
-from stark_anatomy_tpu_torch.iop.merkle import gather_requests, verify_multiproof
+from stark_anatomy_tpu_torch.iop.merkle import (
+    MIN_CHUNK_LEAVES,
+    ChunkedPairCommit,
+    commit_columns_chunked,
+    gather_requests,
+    verify_multiproof,
+)
 from stark_anatomy_tpu_torch.iop.proof_stream import ProofStream, ProofStreamError
 from stark_anatomy_tpu_torch.ops import field_kernels as fk
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
@@ -100,6 +124,7 @@ from stark_anatomy_tpu_torch.ops.field import (
 )
 from stark_anatomy_tpu_torch.ops.limbs import (
     bytes_to_words,
+    copy_to_numpy,
     ints_to_words,
     mont,
     pack_words,
@@ -136,6 +161,14 @@ from stark_anatomy_tpu_torch.utils.telemetry import phase as _tphase
 # original package's name so both packages derive the same bytes.
 _RANDOMIZER_TAG = b"stark_anatomy_tpu/trace-randomizer/v1"
 _ZK_TAG = b"stark_anatomy_tpu/zk-fri-randomizer/v1"
+
+#: FRI domains at least this long are proved by the chunked big-domain path
+#: when there is no mesh: 2^28, the first F whose standard prove does not fit
+#: an 80 GB H100 (F = 2^27 peaks at 65.6 GB there, and the peak doubles with F).
+_BIG_F_MIN = 1 << 28
+#: Chunk length of the big path's pointwise phases, capped at F/2 so the
+#: chunk count is even (the boundary-quotient commit walks mirrored pairs).
+_BIG_CHUNK = 1 << 22
 
 
 def _next_pow2(n: int) -> int:
@@ -174,6 +207,36 @@ def _block(n: int, mesh) -> Tuple[int, int]:
     if holds_blocks(mesh):
         return block_start(n, mesh), n // mesh.world
     return 0, n
+
+
+def _chunk_tiler(period: torch.Tensor, blk: int):
+    """c -> columns [c*blk, (c+1)*blk) of the periodic tiling of `period`;
+    one tile serves every chunk when the period divides blk."""
+    if blk % period.shape[1] == 0:
+        tile = _tile(period, 0, blk)
+        return lambda c: tile
+    return lambda c: _tile(period, c * blk, blk)
+
+
+def _rolled_slice(t: torch.Tensor, start: int, blk: int) -> torch.Tensor:
+    """Columns [start, start+blk) of t with wraparound: chunk c of
+    torch.roll(t, -start_0) for start = c*blk + start_0."""
+    f = t.shape[1]
+    start %= f
+    if start + blk <= f:
+        return t[:, start : start + blk]
+    return torch.cat([t[:, start:], t[:, : start + blk - f]], dim=1)
+
+
+def _horner(coeffs: List[int], x: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """out <- sum_d coeffs[d] * x^d at Montgomery points x, Montgomery form;
+    host coefficients low first, at least two: 2 (len - 1) launches."""
+    fk.mont_mul(x, mont(coeffs[-1]), out=out)
+    for d in range(len(coeffs) - 2, -1, -1):
+        if d < len(coeffs) - 2:
+            fk.mont_mul(out, x, out=out)
+        fk.add(out, mont(coeffs[d]), out=out)
+    return out
 
 
 def _tile(period: torch.Tensor, start: int, count: int) -> torch.Tensor:
@@ -522,18 +585,24 @@ class Stark:
             else:
                 cols = [ints_to_words(c) for c in self.air.constant_columns(o)]
             return [self.column_lde_words(c, device, mesh) for c in cols]
-        period, coeffs = self._periodic_coeffs()
         start, count = _block(f, mesh)
+        return [_tile(block, start, count) for block in self._periodic_blocks(device)]
+
+    def _periodic_blocks(self, device) -> List[torch.Tensor]:
+        """Each periodic constant column's (4, period * F/O) Montgomery block,
+        evaluated exactly on the host: its codeword on the FRI coset is this
+        block repeated."""
+        o, f = self.omicron_domain_length, self.fri_domain_length
+        period, coeffs = self._periodic_coeffs()
         blk = period * f // o  # block length on the FRI domain
         a = pow(self.offset, o // period, PRIME)  # coset offset^(O/period)
         apow = [pow(a, d, PRIME) for d in range(period)]
-        cws = []
+        blocks = []
         for q in coeffs:
             scaled = [q[d] * apow[d] % PRIME for d in range(period)]
             scaled += [0] * (blk - period)
-            block = host_ntt(scaled)  # Q_c on the coset a*<omega_blk>
-            cws.append(_tile(self._mont_column(block, device), start, count))
-        return cws
+            blocks.append(self._mont_column(host_ntt(scaled), device))  # Q_c on a*<omega_blk>
+        return blocks
 
     def _denom_inv_tile(self, device) -> torch.Tensor:
         """(4, F/O) Montgomery table of 1/(x^O - 1) over one period.
@@ -595,12 +664,15 @@ class Stark:
             columns.append(np.concatenate([body, pad_words], axis=1))
         return [self.column_lde_words(c, device, self.mesh) for c in columns]
 
-    def _boundary_quotients(self, t_lde, bps, device) -> List[torch.Tensor]:
+    def _boundary_quotients(self, t_lde, bps, device, x_cw=None) -> List[torch.Tensor]:
         """Standard-form boundary quotients (t_j - B_j) / Z_j, with ONE
         batched inversion for all registers' zerofiers (every zerofier is
-        nonvanishing on the FRI coset: trace and FRI domains are disjoint)."""
+        nonvanishing on the FRI coset: trace and FRI domains are disjoint).
+        x_cw: the Montgomery points of t_lde's columns (default: the FRI
+        coset, this process's block of it under a group)."""
         w = len(t_lde)
-        x_cw = self._x_pow_codeword(1, device)
+        if x_cw is None:
+            x_cw = self._x_pow_codeword(1, device)
         numerators, zs = [], []
         for j in range(w):
             coeffs = bps[j]["interpolant"]
@@ -636,7 +708,18 @@ class Stark:
             out.append(fk.from_mont(q, out=q))
         return out
 
-    def _zk_codeword(self, seed: bytes, device) -> torch.Tensor:
+    @staticmethod
+    def _zk_coefficients(key, n: int, device, columns=None, out=None) -> torch.Tensor:
+        """(4, m) Montgomery zk coefficients of the given columns of the
+        16 x n draw (all n when columns is None); see _zk_codeword."""
+        raw = threefry.random_bits(key, 16, n, device, columns=columns) & 0xFFFF
+        halves = raw[0::2] | (raw[1::2] << 16)  # (8, m): words of lo, then hi
+        lo = fk.add(pack_words(list(halves[:4])), 0)
+        hi = fk.add(pack_words(list(halves[4:])), 0)
+        del raw, halves
+        return fk.to_mont(fk.add(fk.to_mont(hi), lo), out=out)
+
+    def _zk_codeword(self, seed: bytes, device, draw_chunk: int | None = None) -> torch.Tensor:
         """(4, F) standard-form codeword of a seed-derived uniformly random
         polynomial of degree <= degree_target (the FRI bound, so adding it
         to the combination preserves FRI acceptance).
@@ -650,19 +733,23 @@ class Stark:
         Under a group each process draws only the coefficients it holds in
         CYCLIC layout (counters of the whole draw, utils/threefry.py), and
         the sharded coset evaluation takes them as they are: no process
-        holds the coefficient array."""
+        holds the coefficient array.
+
+        draw_chunk: draw the coefficients that many columns at a time (the
+        same bits; the big path's bound on the draw's int64 temporaries)."""
         n, f = self.degree_target + 1, self.fri_domain_length
         mesh = self._group_mesh
         local = mesh is not None and four_step_fits(n, mesh.shards)
         digest = hashlib.sha256(_ZK_TAG + seed).digest()
         key = np.frombuffer(digest[:8], dtype="<u4")
-        columns = cyclic_indices(n, mesh) if local else None
-        raw = threefry.random_bits(key, 16, n, device, columns=columns) & 0xFFFF
-        halves = raw[0::2] | (raw[1::2] << 16)  # (8, n): words of lo, then hi
-        lo = fk.add(pack_words(list(halves[:4])), 0)
-        hi = fk.add(pack_words(list(halves[4:])), 0)
-        del raw, halves
-        coeffs = fk.to_mont(fk.add(fk.to_mont(hi), lo))
+        if draw_chunk is None:
+            coeffs = self._zk_coefficients(key, n, device, cyclic_indices(n, mesh) if local else None)
+        else:
+            coeffs = torch.empty((4, n), dtype=torch.int32, device=device)
+            for start in range(0, n, draw_chunk):
+                stop = min(start + draw_chunk, n)
+                self._zk_coefficients(key, n, device, torch.arange(start, stop, device=device),
+                                      out=coeffs[:, start:stop])
         if local:
             cw = sharded_coset_evaluate(coeffs, f, self.offset, mesh, layout_in=CYCLIC)
         else:
@@ -736,6 +823,11 @@ class Stark:
         the same trace, boundary and seed resumes from the latest of them to
         the same bytes. A snapshot of other inputs is refused.
         """
+        if self.fri_domain_length >= _BIG_F_MIN and self.mesh is not None and not holds_blocks(self.mesh):
+            raise ValueError(
+                f"F = {self.fri_domain_length} takes the chunked big-domain path (F >= _BIG_F_MIN = "
+                f"{_BIG_F_MIN}), which has no mesh form: prove without a mesh, or through the group "
+                "prove (a mesh with a process group, block-local at any F)")
         device = require_device(self.device)
         if randomizer_seed is None:
             randomizer_seed = os.urandom(32)
@@ -757,6 +849,10 @@ class Stark:
             return sample_field_element(
                 _RANDOMIZER_TAG + randomizer_seed + r.to_bytes(8, "big") + j.to_bytes(4, "big")
             )
+
+        if self._big:
+            return self._prove_big(ps, trace, as_bytes, boundary, randomizer, randomizer_seed, device,
+                                   checkpoint_dir, ckpt_meta)
 
         with _phase("prove.trace-lde", device):
             t_lde = self._trace_lde(trace, as_bytes, randomizer, device)
@@ -785,13 +881,168 @@ class Stark:
             comb = self._combination(t_lde, bq_standard, zk_standard, bps, weights, device)
             t_lde.clear()
 
-        if checkpoint_dir is not None:
-            with _phase("prove.checkpoint", device):
-                arrays = {"comb": comb, "zk": zk_standard}
-                for j, q in enumerate(bq_standard):
-                    arrays[f"bq{j}"] = q
-                snapshot(checkpoint_dir, checkpoint.STAGE_PRE_FRI, list(ps.items), arrays, ckpt_meta,
-                         self.mesh)
+        self._checkpoint(ps, comb, bq_standard, zk_standard, device, checkpoint_dir, ckpt_meta)
+        return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
+                                  device, checkpoint_dir, ckpt_meta)
+
+    def _checkpoint(self, ps, comb, bq_standard, zk_standard, device, checkpoint_dir, ckpt_meta) -> None:
+        """The pre-FRI snapshot (when checkpoint_dir is set): the transcript so
+        far, the combination and the committed codewords, from the device or
+        the host."""
+        if checkpoint_dir is None:
+            return
+        with _phase("prove.checkpoint", device):
+            arrays = {"comb": comb, "zk": zk_standard}
+            for j, q in enumerate(bq_standard):
+                arrays[f"bq{j}"] = q
+            snapshot(checkpoint_dir, checkpoint.STAGE_PRE_FRI, list(ps.items), arrays, ckpt_meta,
+                     self.mesh)
+
+    # -- the chunked big-domain prover ---------------------------------------
+
+    @property
+    def _big(self) -> bool:
+        """Whether prove takes the chunked big-domain path."""
+        return self.fri_domain_length >= _BIG_F_MIN and self.mesh is None
+
+    def _big_chunk_len(self) -> int:
+        """Domain chunk of the big path: _BIG_CHUNK, at most F/2 (F and the
+        chunk are powers of two, so the count of chunks is even)."""
+        return min(_BIG_CHUNK, self.fri_domain_length // 2)
+
+    def _chunk_points(self, base: torch.Tensor, c: int, out: torch.Tensor) -> torch.Tensor:
+        """Montgomery points x of domain chunk c: base = powers(omega, blk)
+        times offset * omega^(c*blk)."""
+        blk = base.shape[1]
+        return fk.mont_mul(base, mont(self.offset * pow(self.omega, c * blk, PRIME)), out=out)
+
+    def _bq_domain_chunk(self, t_lde, bps, c: int, xc: torch.Tensor, device) -> List[torch.Tensor]:
+        """Standard-form boundary quotients of domain chunk c at its points xc
+        (_chunk_points): _boundary_quotients on the chunk's slices of t_lde.
+        The big path derives them twice a chunk, for the commit and for the
+        combination, and never holds them whole on the device."""
+        blk = xc.shape[1]
+        return self._boundary_quotients([t[:, c * blk : (c + 1) * blk] for t in t_lde], bps, device, x_cw=xc)
+
+    def _constant_chunks(self, blk: int, device):
+        """c -> the AIR's constant columns on domain chunk c, Montgomery.
+        Periodic columns: tiles of their blocks (_periodic_blocks); dense ones
+        are extended whole, as _constants_codewords does, and sliced."""
+        if not hasattr(self.air, "periodic_columns"):
+            cws = self._constants_codewords(device)
+            return lambda c: [cw[:, c * blk : (c + 1) * blk] for cw in cws]
+        tilers = [_chunk_tiler(block, blk) for block in self._periodic_blocks(device)]
+        return lambda c: [tiler(c) for tiler in tilers]
+
+    def _boundary_commit_chunked(self, t_lde, bps, blk: int, device):
+        """Standard-form boundary quotients streamed to host numpy and
+        committed chunk by chunk: (the w host (4, F) arrays, their tree).
+
+        Pair leaf k packs rows k and k + F/2, so the loop walks MIRRORED
+        chunk pairs c and c + n/2: each pair's quotients go to the
+        ChunkedPairCommit and into the host arrays; no F-wide quotient is
+        ever on the device. Trees of fewer than MIN_CHUNK_LEAVES leaves a chunk are
+        committed at the end from the host arrays."""
+        f, w = self.fri_domain_length, len(t_lde)
+        half_chunks = f // blk // 2
+        base = nttmod.powers(self.omega, blk, device)
+        xc = torch.empty_like(base)
+        bq_host = [np.empty((4, f), dtype=np.uint32) for _ in range(w)]
+        builder = ChunkedPairCommit(blk, 32 * w) if blk >= MIN_CHUNK_LEAVES else None
+        for k in range(half_chunks):
+            pair = []
+            for c in (k, k + half_chunks):
+                qs = self._bq_domain_chunk(t_lde, bps, c, self._chunk_points(base, c, xc), device)
+                for j, q in enumerate(qs):
+                    copy_to_numpy(bq_host[j][:, c * blk : (c + 1) * blk], q)
+                pair += qs
+            if builder is not None:
+                builder.add(pair)
+        if builder is None:
+            return bq_host, commit_columns_chunked(bq_host, blk, device)
+        return bq_host, builder.finish(bq_host)
+
+    def _comb_chunked(self, t_lde, zk_standard, weights, bps, blk: int, device) -> torch.Tensor:
+        """Transition quotients and the weighted combination, chunk by chunk
+        into one preallocated (4, F) codeword: _combination's values.
+
+        Per chunk: the points x from one powers table, the transition
+        zerofier's inverse as the excluded-row factor by Horner in x times
+        the tiled denominator inverse, the AIR on the chunk's slices of t_lde
+        and of its roll by one trace row, the boundary-quotient terms
+        re-derived from t_lde (_bq_domain_chunk), and the
+        x^shift lifts from one table a shift scaled per chunk."""
+        o, f, w = self.omicron_domain_length, self.fri_domain_length, self.num_registers
+        e = self.expansion_shift
+        degrees = [self.transition_quotient_degree] * self.air.num_constraints + [
+            o - 1 - len(bps[j]["roots"]) for j in range(w)
+        ]
+        shifts = [self.degree_target - deg for deg in degrees]
+        shift_base = {s: nttmod.powers(pow(self.omega, s, PRIME), blk, device)
+                      for s in sorted({s for s in shifts if s})}
+        constants = self._constant_chunks(blk, device)
+        denom_inv = _chunk_tiler(self._denom_inv_tile(device), blk)
+        excluded = self._excluded_coeffs()
+        base = nttmod.powers(self.omega, blk, device)
+        xc, ztc = torch.empty_like(base), torch.empty_like(base)
+        comb = torch.empty((4, f), dtype=torch.int32, device=device)
+        for c in range(f // blk):
+            sl = slice(c * blk, (c + 1) * blk)
+            self._chunk_points(base, c, xc)
+            fk.mont_mul(_horner(excluded, xc, ztc), denom_inv(c), out=ztc)
+            cur = [t[:, sl] for t in t_lde]
+            nxt = [_rolled_slice(t, c * blk + e, blk) for t in t_lde]
+            terms = list(self.air.eval_transition_device(cur, nxt, constants(c)))
+            del nxt
+            for con in terms:
+                fk.mont_mul(con, ztc, out=con)
+            terms += [fk.to_mont(q, out=q) for q in self._bq_domain_chunk(t_lde, bps, c, xc, device)]
+            out = fk.to_mont(zk_standard[:, sl], out=comb[:, sl])
+            for t_idx, s in enumerate(shifts):
+                alpha, beta = weights[2 * t_idx], weights[2 * t_idx + 1]
+                term, terms[t_idx] = terms[t_idx], None
+                if s:
+                    x_s = pow(self.offset, s, PRIME) * pow(self.omega, s * c * blk, PRIME)
+                    lift = fk.add(fk.mont_mul(shift_base[s], mont(beta * x_s % PRIME)), mont(alpha))
+                    fk.mont_mul(lift, term, out=term)
+                else:
+                    fk.mont_mul(term, mont((alpha + beta) % PRIME), out=term)
+                fk.add(out, term, out=out)
+        return comb
+
+    def _prove_big(self, ps, trace, as_bytes, boundary, randomizer, randomizer_seed, device,
+                   checkpoint_dir, ckpt_meta) -> bytes:
+        """The chunked single-device prover for F >= _BIG_F_MIN.
+
+        Device memory at F = 2^28 (one (4, F) codeword = 4 GiB): the zk
+        codeword first, on the empty card (its draw in chunks of columns, its
+        commit chunked and host-resident); the trace LDE (+8 GiB); the
+        boundary quotients streamed to the host and committed chunk by chunk
+        (chunk transients only); the combination (+4 GiB, chunk transients);
+        then the zk codeword to the host, and FRI (its first round committed
+        chunked and moved to the host after the second)."""
+        w = self.num_registers
+        blk = self._big_chunk_len()
+        bps = self._boundary_polys(boundary)
+        # The zk codeword depends only on the seed: made first, its root
+        # pushed after bq_root all the same.
+        with _phase("prove.zk-randomizer", device):
+            zk_standard = self._zk_codeword(randomizer_seed, device, draw_chunk=blk)
+            zk_tree = commit_columns_chunked([zk_standard], blk)
+        with _phase("prove.trace-lde", device):
+            t_lde = self._trace_lde(trace, as_bytes, randomizer, device)
+        with _phase("prove.boundary-quotients", device):
+            bq_standard, bq_tree = self._boundary_commit_chunked(t_lde, bps, blk, device)
+        ps.push({"bq_root": digest_to_item(bq_tree.root)})
+        ps.push({"zk_root": digest_to_item(zk_tree.root)})
+        weights = sample_weights(ps.prover_fiat_shamir(), 2 * (self.air.num_constraints + w))
+        with _phase("prove.quotients-combination", device):
+            comb = self._comb_chunked(t_lde, zk_standard, weights, bps, blk, device)
+            t_lde.clear()
+        self._checkpoint(ps, comb, bq_standard, zk_standard, device, checkpoint_dir, ckpt_meta)
+        with _phase("prove.host-offload", device):
+            zk_standard = to_numpy(zk_standard)
+            zk_tree.offload_to_host([zk_standard])
         return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
                                   device, checkpoint_dir, ckpt_meta)
 
@@ -827,15 +1078,24 @@ class Stark:
         combination come from disk, and the boundary-quotient and
         zk-randomizer trees are re-committed from their saved standard-form
         codewords (commitment is deterministic, so the roots already in the
-        transcript are theirs). Under a group every process keeps its block."""
+        transcript are theirs). Under a group every process keeps its block.
+        On the big path both stay host numpy and are re-committed chunk by
+        chunk (commit_columns_chunked uploads one chunk at a time)."""
         arrays = loaded["arrays"]
         ps = ProofStream(loaded["items"])
         with _phase("prove.resume-commit", device):
-            bq_standard = [upload_block(arrays[f"bq{j}"], self.mesh, device)
-                           for j in range(self.num_registers)]
-            bq_tree = commit(bq_standard, self.mesh)
-            zk_standard = upload_block(arrays["zk"], self.mesh, device)
-            zk_tree = commit([zk_standard], self.mesh)
+            if self._big:
+                blk = self._big_chunk_len()
+                bq_standard = [arrays[f"bq{j}"] for j in range(self.num_registers)]
+                bq_tree = commit_columns_chunked(bq_standard, blk, device)
+                zk_standard = arrays["zk"]
+                zk_tree = commit_columns_chunked([zk_standard], blk, device)
+            else:
+                bq_standard = [upload_block(arrays[f"bq{j}"], self.mesh, device)
+                               for j in range(self.num_registers)]
+                bq_tree = commit(bq_standard, self.mesh)
+                zk_standard = upload_block(arrays["zk"], self.mesh, device)
+                zk_tree = commit([zk_standard], self.mesh)
         comb = upload_block(arrays["comb"], self.mesh, device)
         return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
                                   device, checkpoint_dir, ckpt_meta)
@@ -844,7 +1104,8 @@ class Stark:
                       device, checkpoint_dir, ckpt_meta) -> bytes:
         with _phase("prove.fri", device):
             top_indices = self.fri.prove(
-                comb, ps, checkpoint_dir=checkpoint_dir, checkpoint_meta=ckpt_meta)
+                comb, ps, checkpoint_dir=checkpoint_dir, checkpoint_meta=ckpt_meta,
+                big_chunk=self._big_chunk_len() if self._big else None)
         with _phase("prove.open", device):
             self._open(ps, top_indices, bq_standard, bq_tree, zk_standard, zk_tree)
         return ps.serialize()
@@ -854,7 +1115,8 @@ class Stark:
         verifier needs: ALL gathers (codeword columns + Merkle digests of
         both trees) go through one device gather and one transfer (under a
         group one owner_gather of the blocks; over several processes the
-        tree levels are on the host, see parallel/merkle_sharded.py)."""
+        tree levels are on the host, see parallel/merkle_sharded.py; host
+        codewords of the big path are read where they are)."""
         f, e = self.fri_domain_length, self.expansion_shift
         need = set()
         for i in top_indices:

@@ -116,6 +116,14 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu").contiguous().numpy().view(np.uint32)
 
 
+def copy_to_numpy(dst: np.ndarray, src: torch.Tensor) -> None:
+    """Copy the (k, m) int32 tensor `src` (any device) into the uint32 numpy
+    view `dst` of the same shape, one plane at a time straight into dst's
+    memory (its planes must be contiguous): no host tensor in between."""
+    for j in range(src.shape[0]):
+        torch.from_numpy(dst[j].view(np.int32)).copy_(src[j])
+
+
 # -- storage pack/unpack used by the plain int64 routines -------------------
 
 

@@ -73,6 +73,9 @@ LOG_COLS = 3
 LOG_PAIRS_PER_THREAD = 3
 #: log2 of the largest group ntt_grouped transforms (as the TPU kernel: 128).
 LOG_GROUP_MAX = 7
+#: most butterflies ntt_stage_plain computes at a time: its int64 field
+#: temporaries take ~200 B a butterfly, ~3 GiB a piece.
+PLAIN_PIECE = 1 << 24
 
 
 def _log2(n: int) -> int:
@@ -117,15 +120,24 @@ def ntt_stage_plain(x: torch.Tensor, tw: torch.Tensor, s: int,
                     size: int | None = None) -> torch.Tensor:
     """Plain version of ntt_stage: DIT stage s (m = 2^s, h = m/2) combines
     positions (pos, pos + h) of every group of m with w^(j * size/m), where
-    `size` (default: all of x) is the transform length tw belongs to."""
+    `size` (default: all of x) is the transform length tw belongs to. At
+    most PLAIN_PIECE butterflies at a time, so the int64 temporaries stay a
+    few GiB at any n."""
     n = x.shape[1]
     size = n if size is None else size
     m, h = 1 << s, 1 << (s - 1)
     groups = x.reshape(4, n // m, 2, h)
     w = tw[:, :: size // m][:, None, :]
-    e = groups[:, :, 0, :]
-    t = ft.mont_mul(groups[:, :, 1, :], w)
-    return torch.stack([ft.add(e, t), ft.sub(e, t)], dim=2).reshape(4, n)
+    out = torch.empty_like(groups)
+    step_g, step_h = max(1, PLAIN_PIECE // h), min(h, PLAIN_PIECE)
+    for g0 in range(0, n // m, step_g):
+        for h0 in range(0, h, step_h):
+            gs, hs = slice(g0, g0 + step_g), slice(h0, h0 + step_h)
+            e = groups[:, gs, 0, hs]
+            t = ft.mont_mul(groups[:, gs, 1, hs], w[:, :, hs])
+            out[:, gs, 0, hs] = ft.add(e, t)
+            out[:, gs, 1, hs] = ft.sub(e, t)
+    return out.reshape(4, n)
 
 
 def ntt_stages_plain(x: torch.Tensor, tw: torch.Tensor, s: int, last: int) -> torch.Tensor:

@@ -68,12 +68,6 @@ def pair_exchange(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return recv.reshape(2 * k, half)
 
 
-def _host_levels(tree: MerkleTree) -> MerkleTree:
-    """The same tree with every level on the host as (m, 16) rows."""
-    tree.levels = [_rows(to_numpy(lv)) if isinstance(lv, torch.Tensor) else lv for lv in tree.levels]
-    return tree
-
-
 def _rows(level: np.ndarray) -> np.ndarray:
     """(16, m) uint32 digest planes -> (m, 16) '<u4' digest rows."""
     return np.ascontiguousarray(level.T).astype("<u4")
@@ -98,7 +92,9 @@ def commit_sharded(columns: Sequence[torch.Tensor], mesh: Mesh, pair: bool = Fal
         # single-device commit of the whole columns, the same tree; over
         # several processes its levels go to the host like the others.
         tree = commit_columns([gather(c, mesh) for c in columns], pair=pair)
-        return tree if w == 1 else _host_levels(tree)
+        if w > 1:
+            tree.offload_to_host()
+        return tree
     if not pair:
         msg = leaf_word_planes(columns)
     elif mesh.group is None:

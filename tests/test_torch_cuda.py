@@ -68,3 +68,25 @@ def test_checkpoint_resume_on_the_card_gives_identical_bytes(card):
 
 def test_the_mesh_path_on_the_card_equals_the_single_device_path(card):
     chip_smoke.phase_mesh(chain=125, log_n=14)
+
+
+def test_the_forced_big_path_on_the_card_gives_the_golden_bytes(card, monkeypatch):
+    from stark_anatomy_tpu_torch.iop import stark as stark_mod
+
+    monkeypatch.setattr(stark_mod, "_BIG_F_MIN", 1)
+    monkeypatch.setattr(stark_mod, "_BIG_CHUNK", 256)
+    chip_smoke.phase_golden()
+
+
+def test_the_forced_big_path_with_the_chunked_pair_commit_on_the_card_equals_the_cpu(card, monkeypatch):
+    from stark_anatomy_tpu_torch.iop import stark as stark_mod
+
+    proofs = {}
+    for device in ("cpu", "cuda"):
+        rp, air, stark = chip_smoke.rescue_setup(15, 2, device)
+        boundary = air.boundary_constraints(rp.chain_output(7, 15))
+        if device == "cuda":
+            monkeypatch.setattr(stark_mod, "_BIG_F_MIN", 1)
+            monkeypatch.setattr(stark_mod, "_BIG_CHUNK", 1 << 12)  # F = 2^13: ChunkedPairCommit engaged
+        proofs[device] = stark.prove(rp.trace(7, 15), boundary, randomizer_seed=b"big-card")
+    assert proofs["cuda"] == proofs["cpu"] and stark.verify(proofs["cuda"], boundary)

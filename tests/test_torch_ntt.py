@@ -190,6 +190,20 @@ def test_block_then_multi_stage_passes_equal_the_transform_and_the_reference(n, 
         assert torch.equal(y, want), cut
 
 
+@pytest.mark.parametrize("piece", [1, 8, 1 << 7])
+def test_the_plain_stage_in_pieces_equals_the_transform_and_the_reference(monkeypatch, piece):
+    # ntt_stage_plain bounds its int64 temporaries by computing at most
+    # PLAIN_PIECE butterflies at a time: pieces across groups (early stages)
+    # and inside a group (late stages) give the stage's values.
+    n = 1 << 10
+    x, jx = _codeword(n, seed=23)
+    tw = nttmod._twiddles(n, False, "cpu")
+    monkeypatch.setattr(ntt_kernels, "PLAIN_PIECE", piece)
+    got = ntt_kernels.ntt_block_plain(x, tw, 10)
+    assert torch.equal(got, ntt_kernels.transform_plain(x, tw))
+    _same(got, ref_ntt.ntt(jx))
+
+
 def test_multi_stage_rejects_bad_ranges():
     x, _ = _codeword(1 << 12)
     tw = nttmod._twiddles(1 << 12, False, "cpu")
