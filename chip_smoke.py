@@ -27,6 +27,16 @@ exits non-zero:
   full     chain 32765, F = 2^24 (the main path at its real size): launch
            counts reset, cold prove, counts read; warm prove; verify; phase
            split; peak device memory
+  cli      (needs full) the command-line prover, python3 -m
+           stark_anatomy_tpu_torch.prove_rescue, each run a process of its
+           own: the full phase's prove to its bytes; --profile production-80
+           at chain 32763 (32 queries, 16 grinding bits, F = 2^24) to the
+           bytes of the same prove in this process, one pow_nonce, a tampered
+           copy rejected; a small production-80 prove with --device cuda and
+           --device cpu to identical bytes; the seconds and phase split the
+           CLI printed, the grinding time. Then clear_table_caches() here,
+           which must free at least the 2^24-point twiddle tables, and the
+           native host batch ops against FieldElement on 4096 values
   inv      field_kernels.inv alone at the prove's shape (2^24 elements): the
            launches of one call, device and host time, equal to field_torch.inv
   mesh     the mesh path on the one card (8 shards in one process, so an
@@ -150,6 +160,9 @@ MESH_SHARDS = 8
 #: steps of the Fibonacci and MiMC traces of the airs phase: 1 048 481 rows,
 #: the omicron domain 2^20 that chain 32765 gives Rescue-Prime
 AIR_STEPS = 1048480
+#: chain of the cli phase's production-80 prove: 32 * 32763 + 1 + 4 * 32
+#: randomizers = 1 048 545 <= 2^20, so O = 2^20 and F = 2^24
+P80_CHAIN = 32763
 #: chain of the big phase's real-size prove: 32 * 524285 + 1 = 16 777 121
 #: rows, O = 2^24, F = 2^28
 BIG_CHAIN = 524285
@@ -732,6 +745,162 @@ def phase_full(chain: int) -> tuple:
     )
     emit("full", **info)
     return info, (trace, boundary, cold)
+
+
+def run_cli(argv: list) -> tuple:
+    """The command-line prover in a process of its own, from the repo root
+    (the kernels are already built): (stdout, wall seconds). Fails unless it
+    exits 0 and prints ACCEPT."""
+    t0 = time.perf_counter()
+    done = subprocess.run([sys.executable, "-m", "stark_anatomy_tpu_torch.prove_rescue", *argv],
+                          cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if done.returncode != 0 or "ACCEPT" not in done.stdout:
+        raise AssertionError(f"prove_rescue {' '.join(argv)} exited {done.returncode}:\n"
+                             f"{done.stdout[-2000:]}\n{done.stderr[-4000:]}")
+    return done.stdout, wall
+
+
+def cli_numbers(stdout: str) -> dict:
+    """The seconds and bytes the CLI printed, and its phase split."""
+    import re
+
+    def one(pattern: str) -> str:
+        found = re.search(pattern, stdout, re.M)
+        if found is None:
+            raise AssertionError(f"the CLI printed no line matching {pattern!r}")
+        return found.group(1)
+
+    return dict(
+        trace_s=float(one(r"^trace generated in ([0-9.]+)s")),
+        prove_s=float(one(r"^proved in ([0-9.]+)s")),
+        proof_bytes=int(one(r"; proof = (\d+) bytes$")),
+        verify_s=float(one(r"^verified in ([0-9.]+)s")),
+        split_s={k: float(v) for k, v in re.findall(r"^  (\S+): ([0-9.]+)s$", stdout, re.M)},
+    )
+
+
+def check_native_batch_ops() -> None:
+    """native.available(), and the six host batch ops equal to FieldElement
+    on 4096 seeded values with 0, 1 and p - 1 among them."""
+    from stark_anatomy_tpu_torch import FieldElement, PRIME, native
+
+    n = 4096
+    if not native.available():
+        raise AssertionError("the native host library did not build or load")
+    rng = np.random.default_rng(80)
+    a = [0, 1, PRIME - 1] + [int.from_bytes(rng.bytes(16), "little") % PRIME for _ in range(n - 3)]
+    b = a[::-1]
+    fa, fb = [FieldElement(x) for x in a], [FieldElement(x) for x in b]
+    for name, got, want in (
+        ("add_batch", native.add_batch(a, b), [(x + y).value for x, y in zip(fa, fb)]),
+        ("sub_batch", native.sub_batch(a, b), [(x - y).value for x, y in zip(fa, fb)]),
+        ("mul_batch", native.mul_batch(a, b), [(x * y).value for x, y in zip(fa, fb)]),
+        ("inv_batch", native.inv_batch(a), [x.inverse().value if x.value else 0 for x in fa]),
+        *((f"pow_batch e={e}", native.pow_batch(a, e), [x.pow(e).value for x in fa])
+          for e in (0, 1, PRIME - 2, (1 << 128) - 1)),
+    ):
+        if got != want:
+            raise AssertionError(f"native.{name} differs from FieldElement")
+    g, acc, want = FieldElement(a[5]), FieldElement(1), []
+    for _ in range(n):
+        want.append(acc.value)
+        acc = acc * g
+    if native.powers(g.value, n) != want:
+        raise AssertionError("native.powers differs from FieldElement")
+
+
+def phase_cli(chain: int, full_proof: bytes) -> dict:
+    """The command-line prover (python3 -m stark_anatomy_tpu_torch.prove_rescue)
+    on the card, each run a process of its own: (a) the full phase's prove,
+    to its bytes; (b) the production-80 profile at chain P80_CHAIN (F = 2^24),
+    to the bytes of the same prove in this process, one pow_nonce, a tampered
+    copy rejected; (c) a small production-80 prove with --device cuda and
+    --device cpu, to identical bytes; (d) clear_table_caches() in this
+    process, which must free at least the F-point twiddle tables; (e) the
+    native host batch ops against FieldElement."""
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    from stark_anatomy_tpu_torch import clear_table_caches
+    from stark_anatomy_tpu_torch.iop.stark import Stark
+    from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, RescuePrimeAir
+    from stark_anatomy_tpu_torch.ops import ntt as nttmod
+
+    torch.cuda.empty_cache()  # leave the card's memory to the CLI's processes
+    info: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_cli_") as d:
+        def prove(name: str, argv: list) -> bytes:
+            path = os.path.join(d, name + ".bin")
+            stdout, wall = run_cli([*argv, "--out", path])
+            info[name] = dict(wall_s=round(wall, 3), **cli_numbers(stdout))
+            with open(path, "rb") as fh:
+                return fh.read()
+
+        # (a) the main path through the CLI
+        default = prove("default", ["--input", "11", "--chain", str(chain), "--checks", "16",
+                                    "--seed", "full-v1"])
+        if default != full_proof:
+            raise AssertionError("the CLI's proof differs from the full phase's")
+        # (b) production-80 at F = 2^24, against the same prove in this process
+        p80 = prove("production_80", ["--input", "11", "--profile", "production-80",
+                                      "--chain", str(P80_CHAIN), "--seed", "cli-p80"])
+        rp = RescuePrime()
+        air = RescuePrimeAir(rp, chain_length=P80_CHAIN)
+        stark = Stark.from_profile("production-80", air, device="cuda")
+        if stark.fri_domain_length != 1 << 24:
+            raise AssertionError(f"production-80 at chain {P80_CHAIN}: F = {stark.fri_domain_length}")
+        trace = rp.trace_bytes(11, P80_CHAIN)
+        boundary = air.boundary_constraints(int.from_bytes(trace[-1, 0].tobytes(), "little"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        here = stark.prove(trace, boundary, randomizer_seed=b"cli-p80")
+        torch.cuda.synchronize()
+        info["production_80"]["in_process_prove_s"] = round(time.perf_counter() - t0, 3)
+        if here != p80:
+            raise AssertionError("the CLI's production-80 proof differs from Stark.from_profile's")
+        nonces = [next(iter(item)) for item in json.loads(p80)].count("pow_nonce")
+        if nonces != 1:
+            raise AssertionError(f"the production-80 proof holds {nonces} pow_nonce items")
+        if stark.verify(tamper_leaf(p80), boundary):
+            raise AssertionError("a tampered production-80 proof verified")
+        del stark, trace
+        # (c) a small production-80 prove on both devices, the two processes together
+        with ThreadPoolExecutor(2) as pool:
+            small = {dev: pool.submit(prove, f"small_{dev}", [
+                "--input", "5", "--profile", "production-80", "--chain", "3", "--seed", "cli-small",
+                "--device", dev]) for dev in ("cuda", "cpu")}
+            small = {dev: future.result() for dev, future in small.items()}
+        if small["cuda"] != small["cpu"]:
+            raise AssertionError("the CLI's small production-80 proofs differ between cuda and cpu")
+    # (d) the caches of this process, after full and the in-process prove of (b)
+    f_tables = sum(t.numel() * t.element_size() for (n, _inv, dev), t in nttmod._TWIDDLE_CACHE.items()
+                   if n == 1 << 24 and dev.startswith("cuda"))
+    if f_tables == 0:
+        raise AssertionError("no 2^24-point twiddle table was cached before clear_table_caches()")
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    clear_table_caches()
+    drop = before - torch.cuda.memory_allocated()
+    if drop < f_tables:
+        raise AssertionError(f"clear_table_caches() freed {drop} B, less than the {f_tables} B "
+                             "of the 2^24-point twiddle tables")
+    # (e) the native host batch ops
+    check_native_batch_ops()
+    split80 = info["production_80"]["split_s"]
+    fri_default = info["default"]["split_s"].get("prove.fri")
+    out = dict(
+        **info, p80_chain=P80_CHAIN, p80_proof_bytes=len(p80), p80_pow_nonces=nonces,
+        p80_equals_in_process=True, p80_tampered_rejected=True, default_equals_full=True,
+        small_cuda_cpu_identical=True, small_bytes=len(small["cuda"]),
+        grind_s=split80.get("prove.fri.grind"),
+        grind_share_of_prove=split80.get("prove.fri.grind", 0.0) / info["production_80"]["prove_s"],
+        fri_s_p80_over_default=(split80.get("prove.fri", 0.0) / fri_default) if fri_default else None,
+        twiddle_bytes_f=f_tables, memory_drop_bytes=drop, native_available=True,
+        native_batch_ops_equal=True,
+    )
+    emit("cli", **out)
+    return out
 
 
 def phase_inv(log_n: int = 24) -> dict:
@@ -1487,7 +1656,8 @@ def phase_tune(out_dir: str | None) -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawTextHelpFormatter)
-    ap.add_argument("--phases", default="env,build,kernels,golden,mid,airs,resume,full,inv,mesh,dist,big")
+    ap.add_argument("--phases",
+                    default="env,build,kernels,golden,mid,airs,resume,full,cli,inv,mesh,dist,big")
     ap.add_argument("--verbose-build", action="store_true", help="print ptxas resource usage")
     ap.add_argument("--chain", type=int, default=32765, help="chain length of the full phase")
     ap.add_argument("--out", default=None, help="directory for chip_smoke.json / profile.json")
@@ -1529,6 +1699,7 @@ def main() -> int:
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
     full, full_run = phase_full(args.chain)
+    cli = phase_cli(args.chain, full_run[2]) if "cli" in phases else None
     inv = phase_inv() if "inv" in phases else None
     mesh = phase_mesh(args.chain, full_run) if "mesh" in phases else None
     dist = phase_dist(args.chain, full_run) if "dist" in phases else None
@@ -1544,7 +1715,7 @@ def main() -> int:
     if args.out:
         os.makedirs(args.out, exist_ok=True)
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as fh:
-            json.dump({"gpu": gpu_name_and_limit(), "full": full, "inv": inv, "airs": airs,
+            json.dump({"gpu": gpu_name_and_limit(), "full": full, "cli": cli, "inv": inv, "airs": airs,
                        "mesh": mesh, "dist": dist, "big": big, "kernels": table},
                       fh, indent=1)
     print(json.dumps({"kernels": table}), flush=True)

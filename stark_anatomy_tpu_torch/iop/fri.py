@@ -209,6 +209,15 @@ class Fri:
             num += 1
         return num
 
+    def eval_domain(self) -> List[int]:
+        """[offset * omega^i] as host ints (verifier-side)."""
+        omega = self.omega
+        out, cur = [], 1
+        for _ in range(self.domain_length):
+            out.append(self.offset * cur % PRIME)
+            cur = cur * omega % PRIME
+        return out
+
     # -- prover ------------------------------------------------------------
 
     def prove(

@@ -4,10 +4,12 @@ The trace of a Rescue-Prime chain is inherently sequential host work, and
 the last FRI rounds are too small to be worth a launch; both run in the C++
 library the repository already carries. This port builds that source,
 unchanged, with the system ``g++`` into the package's own ``_build/``
-directory on first use and binds the two entry points it needs
-(``rescue_chain_trace``, ``fri_fold``) plus the output-only chain. Each has a
-pure-Python fallback with identical values when no compiler is present;
-``available()`` says which is active.
+directory on first use and binds the two entry points the prover needs
+(``rescue_chain_trace``, ``fri_fold``), the output-only chain, and the
+library's host batch ops (``add_batch``, ``sub_batch``, ``mul_batch``,
+``pow_batch``, ``inv_batch``, ``powers``: lists of ints in, lists out). Each
+has a pure-Python fallback with identical values when no compiler is
+present; ``available()`` says which is active.
 
 Values cross as numpy (n, 16) uint8 arrays of 16-byte little-endian field
 elements, the canonical encoding (utils/encoding.py).
@@ -64,7 +66,14 @@ def _load() -> Optional[ctypes.CDLL]:
         return None
     u8p = ctypes.POINTER(ctypes.c_uint8)
     u64 = ctypes.c_uint64
+    size = ctypes.c_size_t
     for name, argtypes in (
+        ("felt_add_batch", [u8p, u8p, u8p, size]),
+        ("felt_sub_batch", [u8p, u8p, u8p, size]),
+        ("felt_mul_batch", [u8p, u8p, u8p, size]),
+        ("felt_pow_batch", [u8p, u8p, u8p, size]),
+        ("felt_inv_batch", [u8p, u8p, size]),
+        ("felt_powers", [u8p, u8p, size]),
         ("rescue_chain_trace", [u8p, u64, u64, u64, u8p, u8p, u8p, u8p]),
         ("fri_fold", [u8p, u64, u8p, u8p, u8p, u8p]),
         ("rescue_chain_output", [u8p, u64, u64, u8p, u8p, u8p, u8p]),
@@ -93,6 +102,73 @@ def _dec(buf: np.ndarray) -> List[int]:
 
 def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.POINTER(ctypes.c_uint8))
+
+
+def _binary(name: str, a: List[int], b: List[int], py) -> List[int]:
+    if len(a) != len(b):
+        raise ValueError(f"operands differ in length: {len(a)} and {len(b)}")
+    lib = _load()
+    if lib is None:
+        return [py(x, y) for x, y in zip(a, b)]
+    ea, eb = _enc(a), _enc(b)
+    out = np.empty_like(ea)
+    getattr(lib, name)(_ptr(ea), _ptr(eb), _ptr(out), len(a))
+    return _dec(out)
+
+
+def add_batch(a: List[int], b: List[int]) -> List[int]:
+    return _binary("felt_add_batch", a, b, lambda x, y: (x + y) % PRIME)
+
+
+def sub_batch(a: List[int], b: List[int]) -> List[int]:
+    return _binary("felt_sub_batch", a, b, lambda x, y: (x - y) % PRIME)
+
+
+def mul_batch(a: List[int], b: List[int]) -> List[int]:
+    return _binary("felt_mul_batch", a, b, lambda x, y: (x * y) % PRIME)
+
+
+def pow_batch(base: List[int], exponent: int) -> List[int]:
+    """[x^exponent mod p], one shared exponent, 0 <= exponent < 2^128.
+
+    The exponent crosses as its own 16 bytes, NOT reduced mod p: x^e and
+    x^(e mod p) differ for e >= p (they differ by a factor x^(e div p))."""
+    if not 0 <= exponent < 1 << 128:
+        raise ValueError("exponent must be in [0, 2^128)")
+    lib = _load()
+    if lib is None:
+        return [pow(x % PRIME, exponent, PRIME) for x in base]
+    eb = _enc(base)
+    ee = np.frombuffer(exponent.to_bytes(16, "little"), dtype=np.uint8).reshape(1, 16).copy()
+    out = np.empty_like(eb)
+    lib.felt_pow_batch(_ptr(eb), _ptr(ee), _ptr(out), len(base))
+    return _dec(out)
+
+
+def inv_batch(a: List[int]) -> List[int]:
+    """Fermat inverses x^(p-2); 0 maps to 0."""
+    lib = _load()
+    if lib is None:
+        return [pow(x % PRIME, PRIME - 2, PRIME) for x in a]
+    ea = _enc(a)
+    out = np.empty_like(ea)
+    lib.felt_inv_batch(_ptr(ea), _ptr(out), len(a))
+    return _dec(out)
+
+
+def powers(base: int, count: int) -> List[int]:
+    """[base^0, ..., base^(count-1)] mod p."""
+    lib = _load()
+    if lib is None:
+        out, cur = [], 1
+        for _ in range(count):
+            out.append(cur)
+            cur = cur * base % PRIME
+        return out
+    eb = _enc([base])
+    out = np.empty((count, 16), dtype=np.uint8)
+    lib.felt_powers(_ptr(eb), _ptr(out), count)
+    return _dec(out)
 
 
 def _check_rounds(rp) -> None:

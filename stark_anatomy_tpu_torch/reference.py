@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from stark_anatomy_tpu_torch.ops.limbs import to_numpy, to_tensor
+from stark_anatomy_tpu_torch.ops.limbs import require_device, to_numpy, to_tensor
 
 
 def _limbs_to_words(limbs: np.ndarray) -> np.ndarray:
@@ -30,9 +30,9 @@ def _limbs_to_words(limbs: np.ndarray) -> np.ndarray:
     return limbs[0::2] | (limbs[1::2] << np.uint32(16))
 
 
-def from_reference_limbs(limbs: np.ndarray, device="cpu") -> torch.Tensor:
+def from_reference_limbs(limbs: np.ndarray, device="cuda") -> torch.Tensor:
     """(8, n) uint32 16-bit digits -> (4, n) int32 word-plane tensor."""
-    return to_tensor(_limbs_to_words(limbs), device)
+    return to_tensor(_limbs_to_words(limbs), require_device(device))
 
 
 def snapshot_from_reference(arrays: dict) -> dict:
@@ -52,9 +52,9 @@ def to_reference_limbs(t: torch.Tensor) -> np.ndarray:
     return out
 
 
-def from_reference_digests(rows: np.ndarray, device="cpu") -> torch.Tensor:
+def from_reference_digests(rows: np.ndarray, device="cuda") -> torch.Tensor:
     """(n, 16) uint32 digest rows -> (16, n) int32 digest planes."""
-    return to_tensor(np.ascontiguousarray(np.asarray(rows, dtype=np.uint32).T), device)
+    return to_tensor(np.ascontiguousarray(np.asarray(rows, dtype=np.uint32).T), require_device(device))
 
 
 def to_reference_digests(planes: torch.Tensor) -> np.ndarray:

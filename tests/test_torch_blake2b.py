@@ -54,7 +54,7 @@ def test_matches_reference_blake2b_u32(msg_len):
 def test_merkle_node_hash_matches_reference_and_hashlib():
     rng = np.random.default_rng(5)
     rows = rng.integers(0, 1 << 32, size=(64, 16), dtype=np.uint32)
-    level = from_reference_digests(rows)
+    level = from_reference_digests(rows, device="cpu")
     got = to_reference_digests(bk.merkle_node_hash(level))
     want = np.asarray(ref_b2.merkle_node_hash(jnp.asarray(rows[0::2]), jnp.asarray(rows[1::2])))
     np.testing.assert_array_equal(got, want)
@@ -65,7 +65,7 @@ def test_merkle_node_hash_matches_reference_and_hashlib():
 
 def test_digest_layout_conversion_roundtrips():
     rows = np.random.default_rng(6).integers(0, 1 << 32, size=(5, 16), dtype=np.uint32)
-    planes = from_reference_digests(rows)
+    planes = from_reference_digests(rows, device="cpu")
     assert planes.shape == (16, 5) and planes.dtype == torch.int32
     np.testing.assert_array_equal(to_reference_digests(planes), rows)
     assert b2.bytes_to_digest_words(_digests(planes)[2]).tolist() == rows[2].tolist()

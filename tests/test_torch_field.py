@@ -64,7 +64,7 @@ def test_reference_limb_conversion_roundtrips():
     t = to_tensor(w, "cpu")
     limbs = to_reference_limbs(t)
     assert limbs.shape == (8, 64) and limbs.dtype == np.uint32 and int(limbs.max()) < (1 << 16)
-    assert torch.equal(from_reference_limbs(limbs), t)
+    assert torch.equal(from_reference_limbs(limbs, device="cpu"), t)
     vals = words_to_ints(w)
     assert int(vals[1]) == sum(int(limbs[k, 1]) << (16 * k) for k in range(8))
 

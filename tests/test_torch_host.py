@@ -1,17 +1,31 @@
 """PyTorch port, host layer: the port's own copies of the JAX-free modules
-(host field, transcript, encodings, limb helpers) against the originals."""
+(host field, transcript, encodings, limb helpers), the native host batch
+ops, Fri.eval_domain and the top-level package surface against the
+originals."""
+
+import os
 
 import numpy as np
 import pytest
 
+import stark_anatomy_tpu as ref_pkg
+import stark_anatomy_tpu_torch as pkg
+from stark_anatomy_tpu import native as ref_native
+from stark_anatomy_tpu.iop import fri as ref_fri
 from stark_anatomy_tpu.iop import proof_stream as ref_ps
 from stark_anatomy_tpu.ops import field as ref_field
 from stark_anatomy_tpu.ops import limbs as ref_limbs
 from stark_anatomy_tpu.utils import encoding as ref_enc
+from stark_anatomy_tpu_torch import native
+from stark_anatomy_tpu_torch.iop import fri
 from stark_anatomy_tpu_torch.iop import proof_stream as ps
+from stark_anatomy_tpu_torch.iop.stark import Stark
+from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, RescuePrimeAir
 from stark_anatomy_tpu_torch.ops import field
 from stark_anatomy_tpu_torch.ops import limbs
+from stark_anatomy_tpu_torch.ops import ntt as nttmod
 from stark_anatomy_tpu_torch.utils import encoding as enc
+from stark_anatomy_tpu_torch.parallel import make_mesh
 from stark_anatomy_tpu_torch.utils import telemetry
 
 VALUES = [0, 1, 2, field.PRIME - 1, (1 << 64) + 12345, 0xDEADBEEFCAFEBABE1234]
@@ -129,3 +143,80 @@ def test_telemetry_phases_nest_and_reset():
     assert set(rep) == {"outer", "outer.inner"} and rep["outer"]["calls"] == 1
     telemetry.reset()
     assert telemetry.report() == {}
+
+
+def _batch_operands(n: int = 125):
+    rng = np.random.default_rng(n)
+    a = [0, 1, field.PRIME - 1] + [int.from_bytes(rng.bytes(16), "little") % field.PRIME for _ in range(n)]
+    b = [field.PRIME - 1, 0, field.PRIME - 1] + [int.from_bytes(rng.bytes(16), "little") % field.PRIME
+                                                 for _ in range(n)]
+    return a, b
+
+
+POW_EXPONENTS = [0, 1, field.PRIME - 2, (1 << 128) - 1]
+
+
+@pytest.mark.parametrize("route", ["library", "fallback"])
+def test_native_batch_ops_equal_the_jax_package(route, monkeypatch):
+    if route == "library":
+        assert native.available()
+    else:
+        monkeypatch.setattr(native, "_load", lambda: None)
+    a, b = _batch_operands()
+    for ref_route in ("library", "fallback"):
+        with monkeypatch.context() as m:
+            if ref_route == "fallback":
+                m.setattr(ref_native, "_load", lambda: None)
+            assert native.add_batch(a, b) == ref_native.add_batch(a, b)
+            assert native.sub_batch(a, b) == ref_native.sub_batch(a, b)
+            assert native.mul_batch(a, b) == ref_native.mul_batch(a, b)
+            assert native.inv_batch(a) == ref_native.inv_batch(a)  # 0 -> 0 on every route
+            assert native.powers(a[7], 300) == ref_native.powers(a[7], 300)
+            for e in POW_EXPONENTS:
+                # The JAX library reduces the exponent mod p before it crosses
+                # to C (its pow_batch encodes it as a field element), so for
+                # e >= p it computes x^(e mod p); its fallback and both of the
+                # port's routes compute x^e.
+                if ref_route == "fallback" or e < field.PRIME:
+                    assert native.pow_batch(a, e) == ref_native.pow_batch(a, e), e
+    assert native.add_batch(a, b) == [(x + y) % field.PRIME for x, y in zip(a, b)]
+    assert native.inv_batch(a)[1:] == [field.finv(x) for x in a[1:]]
+    for e in POW_EXPONENTS:
+        assert native.pow_batch(a, e) == [pow(x, e, field.PRIME) for x in a]
+    for bad in (-1, 1 << 128):
+        with pytest.raises(ValueError):
+            native.pow_batch(a, bad)
+    with pytest.raises(ValueError):
+        native.add_batch(a, b[:-1])
+
+
+def test_fri_eval_domain_equals_the_jax_package():
+    kw = dict(offset=field.GENERATOR, domain_length=1024, expansion_factor=4, num_colinearity_tests=8)
+    got = fri.Fri(**kw).eval_domain()
+    assert got == ref_fri.Fri(**kw).eval_domain()
+    assert len(set(got)) == 1024 and got[0] == field.GENERATOR
+
+
+def test_top_level_exports_equal_the_jax_package():
+    assert pkg.PRIME == ref_pkg.PRIME == field.PRIME
+    assert pkg.FieldElement is field.FieldElement
+    a, b = pkg.FieldElement(VALUES[4]), pkg.FieldElement(VALUES[5])
+    ra, rb = ref_pkg.FieldElement(VALUES[4]), ref_pkg.FieldElement(VALUES[5])
+    assert (a * b).value == (ra * rb).value and (a / b).value == (ra / rb).value
+    assert callable(pkg.clear_table_caches)
+
+
+def test_clear_table_caches_empties_both_caches_and_the_next_prove_gives_the_same_bytes():
+    # A mesh prove fills both: twiddles, and the mesh's tables through cached_table.
+    rp = RescuePrime()
+    air = RescuePrimeAir(rp, chain_length=1)
+    stark = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=make_mesh(8, "cpu"))
+    boundary = air.boundary_constraints(rp.hash(20260817))
+    trace = rp.trace_bytes(20260817, 1)
+    first = stark.prove(trace, boundary, randomizer_seed=b"golden-v1")
+    assert nttmod._TWIDDLE_CACHE and nttmod._TABLE_CACHE
+    pkg.clear_table_caches()
+    assert not nttmod._TWIDDLE_CACHE and not nttmod._TABLE_CACHE
+    assert stark.prove(trace, boundary, randomizer_seed=b"golden-v1") == first
+    with open(os.path.join(os.path.dirname(__file__), "golden", "proof_rescue_chain1.json"), "rb") as fh:
+        assert first == fh.read()

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+from stark_anatomy_tpu_torch import prove_rescue
 from stark_anatomy_tpu_torch.iop.stark import Stark
 from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, RescuePrimeAir
 from stark_anatomy_tpu_torch.ops import _build
@@ -18,6 +19,7 @@ from stark_anatomy_tpu_torch.ops import field_torch as ft
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
 from stark_anatomy_tpu_torch.ops import ntt_kernels
 from stark_anatomy_tpu_torch.ops.limbs import random_felt_words, to_tensor
+from stark_anatomy_tpu_torch.reference import from_reference_digests, from_reference_limbs
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "stark_anatomy_tpu")
@@ -47,6 +49,7 @@ def _imported_roots(path: str):
 def test_no_port_source_imports_jax_or_the_jax_package():
     files = _port_sources()
     assert len(files) > 20
+    assert os.path.join(ROOT, "stark_anatomy_tpu_torch", "prove_rescue.py") in files
     for path in files:
         bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
@@ -73,6 +76,12 @@ def test_default_device_raises_without_a_card_instead_of_running_on_the_cpu():
         nttmod.powers(3, 8)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         nttmod._twiddles(8, False)
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        prove_rescue.main(["--chain", "1", "--checks", "2", "--seed", "x"])
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        from_reference_limbs(np.zeros((8, 4), dtype=np.uint32))
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        from_reference_digests(np.zeros((4, 16), dtype=np.uint32))
 
 
 def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():

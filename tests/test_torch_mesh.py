@@ -426,5 +426,5 @@ def test_reference_index_maps_are_inverse_and_match_the_documented_layout():
     # stored index i1 * n/S + j holds element i1 + S * j
     assert cyc[0, 3 * 4 + 2] == arr[0, 3 + 8 * 2]
     np.testing.assert_array_equal(cyclic_to_natural(cyc, 8), arr)
-    x = from_reference_limbs(to_reference_limbs(_codeword(32, seed=11)))
+    x = from_reference_limbs(to_reference_limbs(_codeword(32, seed=11)), device="cpu")
     assert torch.equal(_relayout(_relayout(x, 8, True), 8, False), x)
