@@ -67,8 +67,6 @@ exits non-zero:
            too (big_cases)
   tune     (only when named in --phases) the NTT passes timed over cuts of
            the stages, tile widths and block sizes
-  profile  (only when named in --phases) one warm full-size prove under
-           torch.profiler: device time by kernel name, device busy share
 
 With "full" but without "kernels" in --phases (the F = 2^27 measurement,
 ``--phases env,build,full --chain 262141``) the script stops after the
@@ -776,7 +774,8 @@ def cli_numbers(stdout: str) -> dict:
         prove_s=float(one(r"^proved in ([0-9.]+)s")),
         proof_bytes=int(one(r"; proof = (\d+) bytes$")),
         verify_s=float(one(r"^verified in ([0-9.]+)s")),
-        split_s={k: float(v) for k, v in re.findall(r"^  (\S+): ([0-9.]+)s$", stdout, re.M)},
+        split_s={k: float(v) for k, v in re.findall(r"^  (\S+): ([0-9.]+)s(?: host, [0-9.]+s device)?$",
+                                                     stdout, re.M)},
     )
 
 
@@ -1573,42 +1572,6 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
     return table
 
 
-def phase_profile(chain: int, out_dir: str | None, warm_prove_s: float) -> None:
-    """One warm full-size prove under torch.profiler: device time by kernel
-    name, and the device's busy share of the warm prove timed WITHOUT the
-    profiler (`warm_prove_s`; tracing ~2000 launches slows the host severalfold)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    rp, air, stark = rescue_setup(chain, 16, "cuda")
-    trace = rp.trace_bytes(11, chain)
-    boundary = air.boundary_constraints(int.from_bytes(trace[-1, 0].tobytes(), "little"))
-    stark.prove(trace, boundary, randomizer_seed=b"full-v1")  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        stark.prove(trace, boundary, randomizer_seed=b"full-v1")
-        torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.device_time_total / 1e3, e.count) for e in prof.key_averages()
-            if e.device_time_total > 0 and e.device_type.name == "CUDA"]
-    if not rows:
-        raise AssertionError("torch.profiler recorded no device time")
-    rows.sort(key=lambda r: -r[1])
-    busy_ms = sum(r[1] for r in rows)
-    top = [{"name": k[:80], "device_ms": round(ms, 3), "calls": c, "mean_us": round(ms * 1e3 / c, 2)}
-           for k, ms, c in rows[:16]]
-    emit("profile", wall_ms_under_profiler=round(wall_ms, 1), device_busy_ms=round(busy_ms, 1),
-         warm_prove_ms=round(warm_prove_s * 1e3, 1),
-         device_busy_share=round(busy_ms / (warm_prove_s * 1e3), 3), top_device_kernels=top)
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-        with open(os.path.join(out_dir, "profile.json"), "w") as fh:
-            json.dump({"gpu": gpu_name_and_limit(), "wall_ms_under_profiler": wall_ms,
-                       "device_busy_ms": busy_ms, "warm_prove_ms": warm_prove_s * 1e3,
-                       "kernels": [{"name": k, "device_ms": ms, "calls": c} for k, ms, c in rows]},
-                      fh, indent=1)
-
-
 def phase_tune(out_dir: str | None) -> None:
     """(Only when named in --phases.) Times of the NTT passes at n = 2^20 and
     2^24 for several cuts of the stages, tile widths and block sizes, launched
@@ -1660,7 +1623,7 @@ def main() -> int:
                     default="env,build,kernels,golden,mid,airs,resume,full,cli,inv,mesh,dist,big")
     ap.add_argument("--verbose-build", action="store_true", help="print ptxas resource usage")
     ap.add_argument("--chain", type=int, default=32765, help="chain length of the full phase")
-    ap.add_argument("--out", default=None, help="directory for chip_smoke.json / profile.json")
+    ap.add_argument("--out", default=None, help="directory for chip_smoke.json / tune.json")
     args = ap.parse_args()
     phases = [p for p in args.phases.split(",") if p]
 
@@ -1709,8 +1672,6 @@ def main() -> int:
         emit("done", seconds=round(time.perf_counter() - t_start, 1), partial=True)
         return 0
     table = phase_table(results, full, airs, mesh, inv, dist, big)
-    if "profile" in phases:
-        phase_profile(args.chain, args.out, full["warm_prove_s"])
     emit("done", seconds=round(time.perf_counter() - t_start, 1))
     if args.out:
         os.makedirs(args.out, exist_ok=True)

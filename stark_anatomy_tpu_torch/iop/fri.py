@@ -76,7 +76,7 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     to_numpy,
     words_to_ints,
 )
-from stark_anatomy_tpu_torch.utils import checkpoint
+from stark_anatomy_tpu_torch.utils import checkpoint, telemetry
 from stark_anatomy_tpu_torch.utils.encoding import (
     digest_to_item,
     felt_to_item,
@@ -90,15 +90,17 @@ from stark_anatomy_tpu_torch.utils.encoding import (
 )
 from stark_anatomy_tpu_torch.parallel.merkle_sharded import commit_sharded, pair_exchange
 from stark_anatomy_tpu_torch.parallel.mesh import block_start, holds_blocks, host_gather, upload_block
-from stark_anatomy_tpu_torch.utils.telemetry import phase as _tphase
 
 
 def commit(columns, mesh=None, pair: bool = True) -> MerkleTree:
     """Merkle-commit standard-form codeword columns: the sharded commit
-    under a mesh, commit_columns without one. The same tree either way."""
-    if mesh is None:
-        return commit_columns(columns, pair=pair)
-    return commit_sharded(columns, mesh, pair=pair)
+    under a mesh, commit_columns without one. The same tree either way.
+    Every device commit but the chunked one (commit_columns_chunked) passes
+    here: the span merkle-commit."""
+    with telemetry.phase("merkle-commit"):
+        if mesh is None:
+            return commit_columns(columns, pair=pair)
+        return commit_sharded(columns, mesh, pair=pair)
 
 
 def snapshot(directory: str, stage: str, items: list, arrays: dict, meta: dict, mesh=None) -> None:
@@ -123,24 +125,26 @@ def fold(codeword_mont: torch.Tensor, alpha: int, offset: int, omega: int, mesh=
     living on the squared domain offset^2 * <omega^2>. Under a mesh with a
     group the codeword is this process's (4, n/W) block and so is the
     result: pair_exchange brings rows i and i + n/2 of the output block's
-    rows, and the inverse domain starts at the block's first row."""
-    if holds_blocks(mesh):
-        pairs = pair_exchange(codeword_mont, mesh)
-        half = pairs.shape[1]
-        lo, hi = pairs[:4], pairs[4:]
-        start = block_start(half * mesh.world, mesh)
-    else:
-        half = codeword_mont.shape[-1] // 2
-        lo, hi = codeword_mont[:, :half], codeword_mont[:, half:]
-        start = 0
-    # d_i^-1 = offset^-1 * omega^-i, then alpha / d_i.
-    inv_dom = nttmod.powers(finv(omega), half, codeword_mont.device, start=start)
-    au = fk.mont_mul(inv_dom, mont(alpha * finv(offset)))
-    t = fk.add(
-        fk.mont_mul(fk.add(au, mont(1)), lo),
-        fk.mont_mul(fk.sub(mont(1), au), hi),
-    )
-    return fk.mont_mul(t, mont(finv(2)), out=t)
+    rows, and the inverse domain starts at the block's first row. The span
+    fri-fold."""
+    with telemetry.phase("fri-fold"):
+        if holds_blocks(mesh):
+            pairs = pair_exchange(codeword_mont, mesh)
+            half = pairs.shape[1]
+            lo, hi = pairs[:4], pairs[4:]
+            start = block_start(half * mesh.world, mesh)
+        else:
+            half = codeword_mont.shape[-1] // 2
+            lo, hi = codeword_mont[:, :half], codeword_mont[:, half:]
+            start = 0
+        # d_i^-1 = offset^-1 * omega^-i, then alpha / d_i.
+        inv_dom = nttmod.powers(finv(omega), half, codeword_mont.device, start=start)
+        au = fk.mont_mul(inv_dom, mont(alpha * finv(offset)))
+        t = fk.add(
+            fk.mont_mul(fk.add(au, mont(1)), lo),
+            fk.mont_mul(fk.sub(mont(1), au), hi),
+        )
+        return fk.mont_mul(t, mont(finv(2)), out=t)
 
 
 def colinearity_check(points: List[Tuple[int, int]]) -> bool:
@@ -300,8 +304,9 @@ class Fri:
         for r in range(resume_from, rounds):
             if isinstance(codeword, list) or self._on_host(codeword.shape[-1] * world, world):
                 if isinstance(codeword, torch.Tensor):
-                    codeword = [int(v) for v in words_to_ints(host_gather(fk.from_mont(codeword), mesh))]
-                with _tphase("host-tail"):
+                    with telemetry.phase("to-host-tail"):
+                        codeword = [int(v) for v in words_to_ints(host_gather(fk.from_mont(codeword), mesh))]
+                with telemetry.phase("host-tail"):
                     self._host_tail(codeword, r, rounds, omega, offset, codewords, trees,
                                     proof_stream, checkpoint_dir, checkpoint_meta, mesh)
                 break
@@ -330,10 +335,17 @@ class Fri:
         # Grinding: the nonce binds to the full commit-phase transcript and
         # enters the stream BEFORE index sampling.
         if self.grinding_bits:
-            with _tphase("grind"):
+            with telemetry.phase("grind"):
                 nonce = grind(proof_stream.prover_fiat_shamir(), self.grinding_bits)
             proof_stream.push({"pow_nonce": nonce_to_item(nonce)})
 
+        with telemetry.phase("queries"):
+            return self._queries(proof_stream, rounds, codewords, trees, mesh)
+
+    def _queries(self, proof_stream, rounds, codewords, trees, mesh) -> List[int]:
+        """The query phase: sample the top-level indices, open every round's
+        pair leaves and push the points and multiproofs. Returns the
+        top-level indices."""
         top_indices = sample_indices(
             proof_stream.prover_fiat_shamir(),
             self.domain_length // 2,
@@ -359,7 +371,7 @@ class Fri:
             entry["tree_base"], entry["tree_count"], entry["fill"] = len(requests), len(reqs), fill
             requests.extend(reqs)
             pending.append(entry)
-        with _tphase("query-gather"):
+        with telemetry.phase("query-gather"):
             fetched = gather_requests(requests, mesh)
         for entry in pending:
             base = entry["tree_base"]

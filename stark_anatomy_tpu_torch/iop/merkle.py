@@ -43,6 +43,7 @@ import torch
 
 from stark_anatomy_tpu_torch.ops.blake2b_kernels import blake2b_planes, merkle_node_hash
 from stark_anatomy_tpu_torch.ops.limbs import NUM_WORDS, require_device, to_numpy, to_tensor
+from stark_anatomy_tpu_torch.utils import telemetry
 
 __all__ = [
     "ChunkedPairCommit",
@@ -114,14 +115,17 @@ def gather_requests(requests, mesh=None) -> List[np.ndarray]:
     if not on_device:
         return out
     dev_requests = [requests[k] for k in on_device]
-    if mesh is not None and mesh.group is not None:
-        parts = [p.reshape(-1) for p in mesh.owner_gather(dev_requests)]
-    else:
-        parts = []
-        for arr, idx in dev_requests:
-            ix = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=arr.device)
-            parts.append(arr.index_select(1, ix).reshape(-1))
-    host = to_numpy(torch.cat(parts))
+    # One device-wait: each index list's upload from pageable memory drains
+    # the stream, and so does the copy back.
+    with telemetry.device_wait(dev_requests[0][0].device):
+        if mesh is not None and mesh.group is not None:
+            parts = [p.reshape(-1) for p in mesh.owner_gather(dev_requests)]
+        else:
+            parts = []
+            for arr, idx in dev_requests:
+                ix = torch.as_tensor(np.asarray(idx, dtype=np.int64), device=arr.device)
+                parts.append(arr.index_select(1, ix).reshape(-1))
+        host = to_numpy(torch.cat(parts))
     off = 0
     for k, (arr, idx) in zip(on_device, dev_requests):
         size = arr.shape[0] * len(idx)
@@ -426,21 +430,23 @@ def commit_columns_chunked(columns: Sequence, chunk_leaves: int = 1 << 22, devic
     columns: (4, n) device tensors, or host numpy uint32 arrays; host columns
     are sliced on the host, uploaded one chunk at a time to `device` (default
     "cuda") and kept as the tree's leaf_columns. Trees with fewer than MIN_CHUNK_LEAVES
-    leaves a chunk are committed whole by commit_columns."""
-    on_host = isinstance(columns[0], np.ndarray)
-    device = require_device(device or "cuda") if on_host else columns[0].device
-    n = int(columns[0].shape[-1])
-    half = n // 2
-    n_chunks = max(1, half // max(chunk_leaves, 1))
-    chunk_leaves = half // n_chunks
-    if chunk_leaves < MIN_CHUNK_LEAVES:
-        return commit_columns([to_tensor(c, device) if on_host else c for c in columns], pair=True)
-    builder = ChunkedPairCommit(chunk_leaves, 32 * len(columns))
-    for k in range(n_chunks):
-        lo = [c[:, k * chunk_leaves : (k + 1) * chunk_leaves] for c in columns]
-        hi = [c[:, half + k * chunk_leaves : half + (k + 1) * chunk_leaves] for c in columns]
-        builder.add([to_tensor(p, device) for p in lo + hi] if on_host else lo + hi)
-    return builder.finish(columns)
+    leaves a chunk are committed whole by commit_columns. The span
+    merkle-commit, as iop/fri.py commit."""
+    with telemetry.phase("merkle-commit"):
+        on_host = isinstance(columns[0], np.ndarray)
+        device = require_device(device or "cuda") if on_host else columns[0].device
+        n = int(columns[0].shape[-1])
+        half = n // 2
+        n_chunks = max(1, half // max(chunk_leaves, 1))
+        chunk_leaves = half // n_chunks
+        if chunk_leaves < MIN_CHUNK_LEAVES:
+            return commit_columns([to_tensor(c, device) if on_host else c for c in columns], pair=True)
+        builder = ChunkedPairCommit(chunk_leaves, 32 * len(columns))
+        for k in range(n_chunks):
+            lo = [c[:, k * chunk_leaves : (k + 1) * chunk_leaves] for c in columns]
+            hi = [c[:, half + k * chunk_leaves : half + (k + 1) * chunk_leaves] for c in columns]
+            builder.add([to_tensor(p, device) for p in lo + hi] if on_host else lo + hi)
+        return builder.finish(columns)
 
 
 def multiproof_plan(indices: Sequence[int], height: int) -> List[Tuple[int, int]]:

@@ -147,7 +147,7 @@ from stark_anatomy_tpu_torch.parallel.ntt_sharded import (
     sharded_coset_evaluate,
     sharded_lde,
 )
-from stark_anatomy_tpu_torch.utils import checkpoint, threefry
+from stark_anatomy_tpu_torch.utils import checkpoint, telemetry, threefry
 from stark_anatomy_tpu_torch.utils.encoding import (
     digest_to_item,
     felt_to_item,
@@ -155,7 +155,6 @@ from stark_anatomy_tpu_torch.utils.encoding import (
     item_to_digest,
     item_to_felt,
 )
-from stark_anatomy_tpu_torch.utils.telemetry import phase as _tphase
 
 # Domain-separation tags are part of the proof system: they keep the
 # original package's name so both packages derive the same bytes.
@@ -260,12 +259,14 @@ def sample_weights(seed: bytes, count: int) -> List[int]:
 
 @contextlib.contextmanager
 def _phase(name: str, device: torch.device):
-    """A telemetry phase whose clock also covers the device work queued
-    inside it (kernel launches are asynchronous)."""
-    with _tphase(name):
+    """A telemetry phase whose host clock also covers the device work queued
+    inside it (kernel launches are asynchronous): it ends with a synchronise,
+    a device-wait. On a CUDA device it also starts the device clock."""
+    with telemetry.device_phase(name, device):
         yield
         if device.type == "cuda":
-            torch.cuda.synchronize(device)
+            with telemetry.device_wait(device):
+                torch.cuda.synchronize(device)
 
 
 #: Named soundness profiles. Bits shown are the FRI query term, the binding
@@ -562,9 +563,15 @@ class Stark:
         if mesh is not None and four_step_fits(o, mesh.shards):
             # four exchanges: iNTT -> CYCLIC coefficients, local offset
             # scale and pad, NTT cyclic -> natural (S^2 | O gives S^2 | F)
-            return sharded_lde(fk.to_mont(upload_block(words, mesh, device)), f, self.offset, mesh)
+            with telemetry.phase("lde-upload"):
+                block = upload_block(words, mesh, device)
+            with telemetry.phase("lde-ntt"):
+                return sharded_lde(fk.to_mont(block), f, self.offset, mesh)
         # Tiny domains: the single-device transform (the same values).
-        lde = nttmod.coset_evaluate(nttmod.intt(fk.to_mont(to_tensor(words, device))), f, self.offset)
+        with telemetry.phase("lde-upload"):
+            column = to_tensor(words, device)
+        with telemetry.phase("lde-ntt"):
+            lde = nttmod.coset_evaluate(nttmod.intt(fk.to_mont(column)), f, self.offset)
         return shard(lde, mesh) if holds_blocks(mesh) else lde
 
     def _constants_codewords(self, device, mesh=None) -> List[torch.Tensor]:
@@ -653,15 +660,16 @@ class Stark:
         extend every column to the FRI coset."""
         o, w = self.omicron_domain_length, self.num_registers
         t_len = trace.shape[0]
-        pad = [[randomizer(r, j) for j in range(w)] for r in range(t_len, o)]
-        columns = []
-        for j in range(w):
-            pad_words = ints_to_words([row[j] for row in pad])
-            if as_bytes:
-                body = bytes_to_words(np.ascontiguousarray(trace[:, j, :]))
-            else:
-                body = ints_to_words([int(v) for v in trace[:, j]])
-            columns.append(np.concatenate([body, pad_words], axis=1))
+        with telemetry.phase("lde-host"):
+            pad = [[randomizer(r, j) for j in range(w)] for r in range(t_len, o)]
+            columns = []
+            for j in range(w):
+                pad_words = ints_to_words([row[j] for row in pad])
+                if as_bytes:
+                    body = bytes_to_words(np.ascontiguousarray(trace[:, j, :]))
+                else:
+                    body = ints_to_words([int(v) for v in trace[:, j]])
+                columns.append(np.concatenate([body, pad_words], axis=1))
         return [self.column_lde_words(c, device, self.mesh) for c in columns]
 
     def _boundary_quotients(self, t_lde, bps, device, x_cw=None) -> List[torch.Tensor]:
@@ -742,20 +750,22 @@ class Stark:
         local = mesh is not None and four_step_fits(n, mesh.shards)
         digest = hashlib.sha256(_ZK_TAG + seed).digest()
         key = np.frombuffer(digest[:8], dtype="<u4")
-        if draw_chunk is None:
-            coeffs = self._zk_coefficients(key, n, device, cyclic_indices(n, mesh) if local else None)
-        else:
-            coeffs = torch.empty((4, n), dtype=torch.int32, device=device)
-            for start in range(0, n, draw_chunk):
-                stop = min(start + draw_chunk, n)
-                self._zk_coefficients(key, n, device, torch.arange(start, stop, device=device),
-                                      out=coeffs[:, start:stop])
-        if local:
-            cw = sharded_coset_evaluate(coeffs, f, self.offset, mesh, layout_in=CYCLIC)
-        else:
-            cw = nttmod.coset_evaluate(coeffs, f, self.offset)
-            if mesh is not None:
-                cw = shard(cw, mesh)
+        with telemetry.phase("zk-draw"):
+            if draw_chunk is None:
+                coeffs = self._zk_coefficients(key, n, device, cyclic_indices(n, mesh) if local else None)
+            else:
+                coeffs = torch.empty((4, n), dtype=torch.int32, device=device)
+                for start in range(0, n, draw_chunk):
+                    stop = min(start + draw_chunk, n)
+                    self._zk_coefficients(key, n, device, torch.arange(start, stop, device=device),
+                                          out=coeffs[:, start:stop])
+        with telemetry.phase("zk-ntt"):
+            if local:
+                cw = sharded_coset_evaluate(coeffs, f, self.offset, mesh, layout_in=CYCLIC)
+            else:
+                cw = nttmod.coset_evaluate(coeffs, f, self.offset)
+                if mesh is not None:
+                    cw = shard(cw, mesh)
         return fk.from_mont(cw, out=cw)
 
     def _next_rows(self, t: torch.Tensor) -> torch.Tensor:
@@ -1176,15 +1186,15 @@ class Stark:
         n_terms = self.air.num_constraints + w
         weights = sample_weights(ps.verifier_fiat_shamir(), 2 * n_terms)
 
-        with _tphase("verify.fri"):
+        with telemetry.phase("verify.fri"):
             ok, top_points = self.fri.verify(ps)
         if not ok or not top_points:
             return False
-        with _tphase("verify.openings"):
+        with telemetry.phase("verify.openings"):
             opened = self._verify_openings(ps, bq_root, zk_root)
         if opened is None:
             return False
-        with _tphase("verify.constraints"):
+        with telemetry.phase("verify.constraints"):
             return self._verify_combination(boundary, weights, top_points, *opened)
 
     def _verify_openings(self, ps, bq_root: bytes, zk_root: bytes):

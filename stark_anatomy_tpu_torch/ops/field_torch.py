@@ -36,6 +36,7 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     unpack_digits,
     unpack_words,
 )
+from stark_anatomy_tpu_torch.utils import telemetry
 
 _I64 = torch.int64
 
@@ -43,7 +44,8 @@ _I64 = torch.int64
 def const_column(value: int, like: torch.Tensor) -> torch.Tensor:
     """Raw 128-bit host int -> (4, 1, ..) int32 column broadcastable to `like`."""
     words = [w - (1 << 32) if w >= (1 << 31) else w for w in int_to_words(value)]
-    col = torch.tensor(words, dtype=torch.int32, device=like.device)
+    with telemetry.device_wait(like.device):  # an upload from pageable memory
+        col = torch.tensor(words, dtype=torch.int32, device=like.device)
     return col.reshape((NUM_WORDS,) + (1,) * (like.dim() - 1))
 
 

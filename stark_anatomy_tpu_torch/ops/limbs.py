@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from stark_anatomy_tpu_torch.ops.field import PRIME
+from stark_anatomy_tpu_torch.utils import telemetry
 
 NUM_WORDS = 4
 WORD_BITS = 32
@@ -106,22 +107,30 @@ def random_felt_words(rng: np.random.Generator, n: int) -> np.ndarray:
 
 
 def to_tensor(words: np.ndarray, device) -> torch.Tensor:
-    """(k, n) uint32 numpy planes -> int32 tensor (same bits) on `device`."""
+    """(k, n) uint32 numpy planes -> int32 tensor (same bits) on `device`
+    (to a CUDA device a copy from pageable memory, after which torch
+    synchronises the stream: a device-wait)."""
     arr = np.ascontiguousarray(words, dtype=np.uint32).view(np.int32)
-    return torch.from_numpy(arr.copy()).to(device)
+    host = torch.from_numpy(arr.copy())
+    with telemetry.device_wait(device):
+        return host.to(device)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
-    """int32 tensor (any device) -> uint32 numpy array of the same bits."""
-    return t.detach().to("cpu").contiguous().numpy().view(np.uint32)
+    """int32 tensor (any device) -> uint32 numpy array of the same bits
+    (from a CUDA tensor a blocking copy: a device-wait)."""
+    with telemetry.device_wait(t.device):
+        host = t.detach().to("cpu")
+    return host.contiguous().numpy().view(np.uint32)
 
 
 def copy_to_numpy(dst: np.ndarray, src: torch.Tensor) -> None:
     """Copy the (k, m) int32 tensor `src` (any device) into the uint32 numpy
     view `dst` of the same shape, one plane at a time straight into dst's
     memory (its planes must be contiguous): no host tensor in between."""
-    for j in range(src.shape[0]):
-        torch.from_numpy(dst[j].view(np.int32)).copy_(src[j])
+    with telemetry.device_wait(src.device):
+        for j in range(src.shape[0]):
+            torch.from_numpy(dst[j].view(np.int32)).copy_(src[j])
 
 
 # -- storage pack/unpack used by the plain int64 routines -------------------

@@ -35,6 +35,7 @@ import torch
 import torch.distributed as dist
 
 from stark_anatomy_tpu_torch.ops.limbs import require_device, to_numpy, to_tensor
+from stark_anatomy_tpu_torch.utils import telemetry
 
 
 @dataclass(frozen=True)
@@ -127,7 +128,8 @@ class Mesh:
         parts, shapes = [], []
         for t, indices in requests:
             block = t.shape[-1]
-            idx = torch.as_tensor(indices, dtype=torch.int64).to(t.device).reshape(-1)
+            with telemetry.device_wait(t.device):  # an upload from pageable memory
+                idx = torch.as_tensor(indices, dtype=torch.int64).to(t.device).reshape(-1)
             local = idx - self.rank * block
             mine = (local >= 0) & (local < block)
             vals = t.index_select(1, torch.where(mine, local, 0))

@@ -8,7 +8,8 @@ permutation `chain` times yields the printed output, then verifies the
 proof (the verifier sees only the boundary: capacity-zero start + the
 output). Proves on the CUDA card by default and raises without one;
 --device cpu runs the plain PyTorch versions of every kernel, with
-identical proof bytes.
+identical proof bytes. After the prove it prints the seconds of every
+telemetry span, on the host's clock and, on the card, the device's.
 """
 
 from __future__ import annotations
@@ -86,8 +87,11 @@ def main(argv: list[str] | None = None) -> int:
         checkpoint_dir=args.checkpoint_dir,
     )
     print(f"proved in {time.perf_counter() - t0:.2f}s; proof = {len(proof)} bytes")
-    for name, stats in sorted(telemetry.report().items()):
-        print(f"  {name}: {stats['seconds']:.2f}s")
+    split = telemetry.report()
+    for name in sorted(k for k in split if not k.endswith(telemetry.DEVICE_SUFFIX)):
+        device = split.get(name + telemetry.DEVICE_SUFFIX)
+        on_device = "" if device is None else f" host, {device['seconds']:.2f}s device"
+        print(f"  {name}: {split[name]['seconds']:.2f}s{on_device}")
 
     if args.out:
         with open(args.out, "wb") as fh:
