@@ -119,10 +119,15 @@ INT32_OPS_PER_S = 33.5e12
 #: 3 (n - 1) + 143 (Montgomery's trick and one chain; fp_batch_inv's design
 #: does about 4.5 per element). Blake2b: a G is 6 64-bit adds,
 #: 4 xors, and rotates by 24, 16 and 63 (the one by 32 is free) at 2
-#: operations each = 26; 96 G per block = 2496.
+#: operations each = 26; 96 G per block = 2496. zk_coefficients, a
+#: coefficient: 16 threefry2x32 blocks of 20 rounds (add, rotate, xor = 60),
+#: 5 key injections (10), the counter and the output xor (~6): 16 x 76, then
+#: 8 digit pairings, 2 conditional subtracts, one add and two products (8 +
+#: 24 + 12 + 120) = 1380, rounded up to 1450 for the 64-bit counters.
 OPS_PER_UNIT = {
     "fp_add": 12, "fp_sub": 12, "fp_mont_mul": 60, "fp_butterfly": 84, "fp_pow_const": 60,
     "fp_batch_inv": 60, "ntt_block": 84, "ntt_stage": 84, "ntt_grouped": 84, "blake2b_planes": 2496,
+    "zk_coefficients": 1450,
 }
 KERNEL_SOURCES = {
     "fp_add": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:140"),
@@ -135,13 +140,15 @@ KERNEL_SOURCES = {
     "ntt_stage": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:128"),
     "ntt_grouped": ("stark_anatomy_tpu_torch/csrc/ntt.cu", "stark_anatomy_tpu/ops/ntt_pallas.py:242"),
     "blake2b_planes": ("stark_anatomy_tpu_torch/csrc/blake2b.cu", "stark_anatomy_tpu/ops/blake2b_pallas.py:68"),
+    # not a Pallas kernel there: jax.random.bits and the field_jnp ops, fused by XLA
+    "zk_coefficients": ("stark_anatomy_tpu_torch/csrc/zk.cu", "stark_anatomy_tpu/iop/stark.py:1443"),
 }
 #: the kernels every Stark.prove launches. fp_butterfly (ntt_stage fuses the
 #: same arithmetic in place) and fp_pow_const (inv's chain runs inside
 #: fp_batch_inv) are on the ops surface only: a prove launches them no time
 #: and the kernels phase and the table hold them against their plain versions.
 PROVE_PATH_KERNELS = ("fp_add", "fp_sub", "fp_mont_mul", "fp_batch_inv", "ntt_block", "ntt_stage",
-                      "blake2b_planes")
+                      "blake2b_planes", "zk_coefficients")
 OPS_SURFACE_ONLY = ("fp_butterfly", "fp_pow_const")
 #: most fp_mont_mul launches a cold Rescue-Prime prove at chain 32765 may make
 #: (1234 while inv was scans of products; ~470 since it is fp_batch_inv)
@@ -164,6 +171,8 @@ P80_CHAIN = 32763
 #: chain of the big phase's real-size prove: 32 * 524285 + 1 = 16 777 121
 #: rows, O = 2^24, F = 2^28
 BIG_CHAIN = 524285
+#: threefry key of the kernel table's zk draws (both words with the top bit set)
+ZK_KEY = (0x89ABCDEF, 0xFEDCBA98)
 GOLDEN = os.path.join(ROOT, "tests", "golden", "proof_rescue_chain1.json")
 
 
@@ -1316,6 +1325,7 @@ def table_cases(n: int, registers: int) -> tuple:
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
     from stark_anatomy_tpu_torch.ops import ntt_kernels
     from stark_anatomy_tpu_torch.ops.field import PRIME
+    from stark_anatomy_tpu_torch.utils import threefry
 
     # fp_pow_const is on the ops surface: held at the shape the prove gave it
     # while inv's scans bottomed out in a Fermat power (timed at 2^20 and n
@@ -1393,6 +1403,11 @@ def table_cases(n: int, registers: int) -> tuple:
         "blake2b_planes": (lambda: bk.blake2b_planes(msg, msg_len),
                            lambda: b2.blake2b_planes_plain(msg, msg_len),
                            leaves, (msg_len + 64) * leaves, 1),
+        # the zk draw of degree_target + 1 = n/4 coefficients (expansion 4 on
+        # every driven path): 16 B written a coefficient
+        "zk_coefficients": (lambda: threefry.zk_coefficients(ZK_KEY, n // 4, "cuda"),
+                            lambda: threefry.zk_coefficients_plain(ZK_KEY, n // 4, "cuda"),
+                            n // 4, 16 * (n // 4), 1),
     }
     shapes = {name: f"n={n}" for name in cases}
     shapes["fp_pow_const"] = f"n={n_pow} e=p-2"
@@ -1400,7 +1415,35 @@ def table_cases(n: int, registers: int) -> tuple:
     shapes["ntt_stage"] = f"n={n} s=" + ",".join(f"{s}..{last}" for s, last in late)
     shapes["ntt_grouped"] = f"n={n} g={g}"
     shapes["blake2b_planes"] = f"{msg_len} B x {leaves}"
+    shapes["zk_coefficients"] = f"n={n // 4}"
     return cases, shapes
+
+
+def zk_cases():
+    """The zk draw at the shapes the benchmark's F = 2^26 prove and the big
+    path give it: the whole draw of n = 2^24, and the big path's last chunk
+    of _BIG_CHUNK columns of n = 2^26 (F = 2^28) as draw_chunk passes it (an
+    index tensor into an out= view), and as a range. Yields (name, shape,
+    kernel call, plain call)."""
+    from stark_anatomy_tpu_torch.iop import stark as stark_mod
+    from stark_anatomy_tpu_torch.utils import threefry
+
+    n = 1 << 24
+    yield ("zk_coefficients", f"n={n}", lambda: threefry.zk_coefficients(ZK_KEY, n, "cuda"),
+           lambda: threefry.zk_coefficients_plain(ZK_KEY, n, "cuda"))
+    n, blk = 1 << 26, stark_mod._BIG_CHUNK
+    cols = range(n - blk, n)
+    index = torch.arange(cols.start, cols.stop, device="cuda")
+    out = torch.empty((4, 2 * blk), dtype=torch.int32, device="cuda")
+
+    def chunk(columns):
+        return threefry.zk_coefficients(ZK_KEY, n, "cuda", columns, out=out[:, blk:]).clone()
+
+    plain = lambda: threefry.zk_coefficients_plain(ZK_KEY, n, "cuda", index)  # noqa: E731
+    yield "zk_coefficients", f"n={n} columns {cols.start}..{cols.stop} index, out= view", \
+        lambda: chunk(index), plain
+    yield "zk_coefficients", f"n={n} columns {cols.start}..{cols.stop} range", \
+        lambda: threefry.zk_coefficients(ZK_KEY, n, "cuda", cols), plain
 
 
 def in_pieces(fn, *args, piece: int = 1 << 24) -> torch.Tensor:
@@ -1477,6 +1520,7 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
     from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops.field import PRIME
+    from stark_anatomy_tpu_torch.utils import threefry
 
     paths = {"rescue_prime": (full["fri_domain"], full["registers"])}
     for air, info in (airs or {}).items():
@@ -1509,6 +1553,10 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
         if key != main:
             del cases
             torch.cuda.empty_cache()
+    for name, shape, kernel, plain in zk_cases():
+        compared_at[name].append({"paths": ["f26" if "columns" not in shape else "big"], "shape": shape,
+                                  "max_abs_err": compare(name, kernel, plain, shape)})
+    torch.cuda.empty_cache()
 
     n = main[0]
     table = []
@@ -1565,6 +1613,11 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
         pow_row[f"bound_ms_n_{size}"] = max(
             OPS_PER_UNIT["fp_pow_const"] * ft.INV_CHAIN_PRODUCTS * size / INT32_OPS_PER_S,
             32 * size / DEVICE_MEMORY_BYTES_PER_S) * 1e3
+    zk_row = next(row for row in table if row["name"] == "zk_coefficients")
+    size = 1 << 24
+    zk_row[f"ms_n_{size}"] = time_ms(lambda: threefry.zk_coefficients(ZK_KEY, size, "cuda"), reps=5)
+    zk_row[f"bound_ms_n_{size}"] = max(OPS_PER_UNIT["zk_coefficients"] * size / INT32_OPS_PER_S,
+                                       16 * size / DEVICE_MEMORY_BYTES_PER_S) * 1e3
     inv_row = next(row for row in table if row["name"] == "fp_batch_inv")
     inv_row["launches_per_call"] = len(fk.inv_plan(n)) * 2 - 1
     if inv:

@@ -127,7 +127,6 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     copy_to_numpy,
     ints_to_words,
     mont,
-    pack_words,
     require_device,
     to_numpy,
     to_tensor,
@@ -719,13 +718,9 @@ class Stark:
     @staticmethod
     def _zk_coefficients(key, n: int, device, columns=None, out=None) -> torch.Tensor:
         """(4, m) Montgomery zk coefficients of the given columns of the
-        16 x n draw (all n when columns is None); see _zk_codeword."""
-        raw = threefry.random_bits(key, 16, n, device, columns=columns) & 0xFFFF
-        halves = raw[0::2] | (raw[1::2] << 16)  # (8, m): words of lo, then hi
-        lo = fk.add(pack_words(list(halves[:4])), 0)
-        hi = fk.add(pack_words(list(halves[4:])), 0)
-        del raw, halves
-        return fk.to_mont(fk.add(fk.to_mont(hi), lo), out=out)
+        16 x n draw (all n when columns is None); see _zk_codeword and
+        utils/threefry.py zk_coefficients (one kernel launch on the card)."""
+        return threefry.zk_coefficients(key, n, device, columns, out)
 
     def _zk_codeword(self, seed: bytes, device, draw_chunk: int | None = None) -> torch.Tensor:
         """(4, F) standard-form codeword of a seed-derived uniformly random
@@ -744,7 +739,8 @@ class Stark:
         holds the coefficient array.
 
         draw_chunk: draw the coefficients that many columns at a time (the
-        same bits; the big path's bound on the draw's int64 temporaries)."""
+        same bits; the big path's bound on the plain route's int64
+        temporaries, which the kernel does not have)."""
         n, f = self.degree_target + 1, self.fri_domain_length
         mesh = self._group_mesh
         local = mesh is not None and four_step_fits(n, mesh.shards)

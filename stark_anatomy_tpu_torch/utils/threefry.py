@@ -1,4 +1,5 @@
-"""Bit-exact threefry2x32 random bits in torch integer ops.
+"""Bit-exact threefry2x32 random bits, and the zk randomizer's coefficients
+drawn from them.
 
 The zero-knowledge randomizer's coefficients are defined as the stream
 ``jax.random.bits(key, (rows, n), uint32)`` of a threefry2x32 key under the
@@ -7,14 +8,21 @@ partitionable layout (jax 0.9.0's default): element (r, c) encrypts the
 the output word is the XOR of the two cipher words. Proof bytes depend on
 it, so this module reproduces it exactly; tests hold it against jax.
 
-This stream was an XLA-fused elementwise computation in the JAX package, not
-a hand-written kernel, so plain torch ops are its port. uint32 arithmetic is
-carried in int64 and masked.
+``zk_coefficients`` turns 16 rows of that stream into field elements. For a
+CUDA device it launches csrc/zk.cu's ``zk_coefficients`` (threefry, digit
+packing and the Montgomery lift in one kernel) or raises; for the CPU, and
+only because the device is the CPU, it takes ``zk_coefficients_plain``:
+``random_bits`` and the plain field ops, uint32 arithmetic carried in int64
+and masked, one torch pass per step.
 """
 
 from __future__ import annotations
 
 import torch
+
+from stark_anatomy_tpu_torch.ops import _build
+from stark_anatomy_tpu_torch.ops import field_torch as ft
+from stark_anatomy_tpu_torch.ops.limbs import pack_words
 
 _M32 = 0xFFFFFFFF
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -55,3 +63,52 @@ def random_bits(key, rows: int, n: int, device, columns: torch.Tensor | None = N
         flat = torch.arange(rows, dtype=torch.int64, device=device).reshape(rows, 1) * n + cols
     b0, b1 = threefry2x32(key, flat >> 32, flat & _M32)
     return b0 ^ b1
+
+
+#: rows of the draw a zk coefficient takes: 16 digits of 16 bits
+ZK_ROWS = 16
+
+
+def zk_coefficients_plain(key, n: int, device, columns=None, out=None) -> torch.Tensor:
+    """zk_coefficients in plain torch ops (any device): the 16 x m draw,
+    digits paired into the words of lo (rows 0..7) and hi (rows 8..15), each
+    canonicalised with add(., 0), then to_mont(to_mont(hi) + lo)."""
+    if isinstance(columns, range):
+        columns = torch.arange(columns.start, columns.stop, device=device)
+    raw = random_bits(key, ZK_ROWS, n, device, columns=columns) & 0xFFFF
+    halves = raw[0::2] | (raw[1::2] << 16)  # (8, m): words of lo, then hi
+    lo = ft.add(pack_words(list(halves[:4])), 0)
+    hi = ft.add(pack_words(list(halves[4:])), 0)
+    del raw, halves
+    res = ft.to_mont(ft.add(ft.to_mont(hi), lo))
+    return res if out is None else out.copy_(res)
+
+
+def zk_coefficients(key, n: int, device, columns=None, out=None) -> torch.Tensor:
+    """(4, m) Montgomery coefficients X = hi*2^128 + lo mod p of the given
+    columns of the 16 x n draw under `key` (two uint32 words).
+
+    columns: None (all n), a ``range`` of step 1, or an int64 tensor of
+    indices in [0, n), in its order. out: a (4, m) int32 tensor or view
+    (planes may be strided, elements within a plane contiguous) to write."""
+    if isinstance(columns, range) and columns.step != 1:
+        raise ValueError("zk_coefficients: a range of columns must have step 1")
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return zk_coefficients_plain(key, n, dev, columns, out)
+    start, cols, m = 0, None, n
+    if isinstance(columns, range):
+        start, m = columns.start, len(columns)
+    elif columns is not None:
+        cols = columns.to(device=dev, dtype=torch.int64).contiguous()
+        m = cols.numel()
+    if out is None:
+        out = torch.empty((4, m), dtype=torch.int32, device=dev)
+    _build.check_planes(out, 4, "zk_coefficients.out")
+    if out.device.type != "cuda" or out.shape[1] != m:
+        raise ValueError(f"zk_coefficients: out must be a (4, {m}) CUDA tensor, got "
+                         f"{tuple(out.shape)} on {out.device}")
+    with torch.cuda.device(out.device):
+        _build.launch("zk_coefficients", int(key[0]) & _M32, int(key[1]) & _M32, n, start,
+                      None if cols is None else cols.data_ptr(), m, out.data_ptr(), out.stride(0))
+    return out

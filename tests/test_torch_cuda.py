@@ -67,7 +67,7 @@ def test_checkpoint_resume_on_the_card_gives_identical_bytes(card):
 
 
 def test_the_mesh_path_on_the_card_equals_the_single_device_path(card):
-    chip_smoke.phase_mesh(chain=125, log_n=14)
+    chip_smoke.phase_mesh(chain=125, log_n=16)  # 256 shards need 256^2 | n
 
 
 def test_the_forced_big_path_on_the_card_gives_the_golden_bytes(card, monkeypatch):
@@ -90,3 +90,42 @@ def test_the_forced_big_path_with_the_chunked_pair_commit_on_the_card_equals_the
             monkeypatch.setattr(stark_mod, "_BIG_CHUNK", 1 << 12)  # F = 2^13: ChunkedPairCommit engaged
         proofs[device] = stark.prove(rp.trace(7, 15), boundary, randomizer_seed=b"big-card")
     assert proofs["cuda"] == proofs["cpu"] and stark.verify(proofs["cuda"], boundary)
+
+
+_ZK_N = [1, 1000, (1 << 16) + 3, 1 << 22]
+_ZK_CASES = ([(n, "all") for n in _ZK_N] + [(n, "range") for n in _ZK_N] + [(n, "out-view") for n in _ZK_N]
+             + [(n, "cyclic") for n in (1000, 1 << 16, 1 << 22)])
+
+
+@pytest.mark.parametrize("n,cols", _ZK_CASES)
+def test_zk_coefficients_is_one_launch_equal_to_its_plain_version(card, n, cols):
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.parallel import make_mesh
+    from stark_anatomy_tpu_torch.parallel.ntt_sharded import cyclic_indices
+    from stark_anatomy_tpu_torch.utils import threefry
+
+    key = chip_smoke.ZK_KEY
+    columns = {"range": range(n // 3, n), "cyclic": cyclic_indices(n, make_mesh(8, "cuda"))}.get(cols)
+    m = n if columns is None else len(columns)
+    buf = torch.zeros((4, m + 7), dtype=torch.int32, device="cuda")
+    out = buf[:, 7:] if cols == "out-view" else None
+    _build.reset_launch_counts()
+    got = threefry.zk_coefficients(key, n, "cuda", columns, out=out)
+    torch.cuda.synchronize()
+    assert {k: v for k, v in _build.launch_counts().items() if v} == {"zk_coefficients": 1}
+    plain_cols = torch.arange(columns.start, columns.stop, device="cuda") if cols == "range" else columns
+    want = threefry.zk_coefficients_plain(key, n, "cuda", plain_cols)
+    assert got.shape == (4, m) and torch.equal(got, want)
+    if out is not None:
+        assert got.data_ptr() == out.data_ptr() and not buf[:, :7].any()
+    if columns is not None and n <= 1 << 16:
+        whole = threefry.zk_coefficients_plain(key, n, "cuda")
+        assert torch.equal(got, whole[:, plain_cols])
+
+
+def test_the_golden_proof_draws_its_zk_coefficients_in_one_kernel_launch(card):
+    from stark_anatomy_tpu_torch.ops import _build
+
+    _build.reset_launch_counts()
+    chip_smoke.phase_golden()
+    assert _build.launch_counts()["zk_coefficients"] == 1
