@@ -399,8 +399,9 @@ class Fri:
     @staticmethod
     def _offload_round0(codewords, trees) -> None:
         """Move round 0's codeword and tree to the host; its queries then
-        read the host arrays."""
-        codewords[0] = to_numpy(codewords[0])
+        read the host arrays. The span to-host times the copy."""
+        with telemetry.phase("to-host"):
+            codewords[0] = to_numpy(codewords[0])
         trees[0].offload_to_host([codewords[0]])
 
     @staticmethod

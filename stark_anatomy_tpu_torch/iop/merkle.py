@@ -390,18 +390,22 @@ class ChunkedPairCommit:
         self._chunk_roots: List[np.ndarray] = []
 
     def add(self, pair_cols_chunk: Sequence[torch.Tensor]) -> None:
-        msg = leaf_word_planes(pair_cols_chunk)
-        if msg.shape[1] != self.chunk_leaves:
-            raise ValueError(f"expected chunks of {self.chunk_leaves} leaves, got {msg.shape[1]}")
-        self.device = msg.device
-        level = blake2b_planes(msg, self.msg_len)
-        del msg
-        kept = []
-        for lv in range(1, self.chunk_levels + 1):
-            level = merkle_node_hash(level)
-            if lv > self.prune_levels:
-                kept.append(level)
-        host = to_numpy(torch.cat(kept, dim=1))  # one copy for the chunk's kept levels
+        """Hash one chunk to its subtree root and keep its upper levels on
+        the host. The span chunk-commit: leaf hash, reduction, the kept
+        levels' copy to the host."""
+        with telemetry.phase("chunk-commit"):
+            msg = leaf_word_planes(pair_cols_chunk)
+            if msg.shape[1] != self.chunk_leaves:
+                raise ValueError(f"expected chunks of {self.chunk_leaves} leaves, got {msg.shape[1]}")
+            self.device = msg.device
+            level = blake2b_planes(msg, self.msg_len)
+            del msg
+            kept = []
+            for lv in range(1, self.chunk_levels + 1):
+                level = merkle_node_hash(level)
+                if lv > self.prune_levels:
+                    kept.append(level)
+            host = to_numpy(torch.cat(kept, dim=1))  # one copy for the chunk's kept levels
         off = 0
         for lv in range(self.prune_levels + 1, self.chunk_levels + 1):
             width = self.chunk_leaves >> lv

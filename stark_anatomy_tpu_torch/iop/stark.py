@@ -948,7 +948,8 @@ class Stark:
         chunk pairs c and c + n/2: each pair's quotients go to the
         ChunkedPairCommit and into the host arrays; no F-wide quotient is
         ever on the device. Trees of fewer than MIN_CHUNK_LEAVES leaves a chunk are
-        committed at the end from the host arrays."""
+        committed at the end from the host arrays. Spans: to-host around each
+        chunk's copy, merkle-commit around each pair's add and the finish."""
         f, w = self.fri_domain_length, len(t_lde)
         half_chunks = f // blk // 2
         base = nttmod.powers(self.omega, blk, device)
@@ -960,13 +961,16 @@ class Stark:
             for c in (k, k + half_chunks):
                 qs = self._bq_domain_chunk(t_lde, bps, c, self._chunk_points(base, c, xc), device)
                 for j, q in enumerate(qs):
-                    copy_to_numpy(bq_host[j][:, c * blk : (c + 1) * blk], q)
+                    with telemetry.phase("to-host"):
+                        copy_to_numpy(bq_host[j][:, c * blk : (c + 1) * blk], q)
                 pair += qs
             if builder is not None:
-                builder.add(pair)
+                with telemetry.phase("merkle-commit"):
+                    builder.add(pair)
         if builder is None:
             return bq_host, commit_columns_chunked(bq_host, blk, device)
-        return bq_host, builder.finish(bq_host)
+        with telemetry.phase("merkle-commit"):
+            return bq_host, builder.finish(bq_host)
 
     def _comb_chunked(self, t_lde, zk_standard, weights, bps, blk: int, device) -> torch.Tensor:
         """Transition quotients and the weighted combination, chunk by chunk
@@ -995,7 +999,8 @@ class Stark:
         for c in range(f // blk):
             sl = slice(c * blk, (c + 1) * blk)
             self._chunk_points(base, c, xc)
-            fk.mont_mul(_horner(excluded, xc, ztc), denom_inv(c), out=ztc)
+            with telemetry.phase("excluded-factor"):
+                fk.mont_mul(_horner(excluded, xc, ztc), denom_inv(c), out=ztc)
             cur = [t[:, sl] for t in t_lde]
             nxt = [_rolled_slice(t, c * blk + e, blk) for t in t_lde]
             terms = list(self.air.eval_transition_device(cur, nxt, constants(c)))
@@ -1047,7 +1052,8 @@ class Stark:
             t_lde.clear()
         self._checkpoint(ps, comb, bq_standard, zk_standard, device, checkpoint_dir, ckpt_meta)
         with _phase("prove.host-offload", device):
-            zk_standard = to_numpy(zk_standard)
+            with telemetry.phase("to-host"):
+                zk_standard = to_numpy(zk_standard)
             zk_tree.offload_to_host([zk_standard])
         return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
                                   device, checkpoint_dir, ckpt_meta)
