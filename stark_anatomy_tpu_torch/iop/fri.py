@@ -70,10 +70,11 @@ from stark_anatomy_tpu_torch.ops.field import (
     sample_field_element,
     sample_indices,
 )
+from stark_anatomy_tpu_torch.ops.host_pool import copied
 from stark_anatomy_tpu_torch.ops.limbs import (
+    copy_to_numpy,
     ints_to_words,
     mont,
-    to_numpy,
     words_to_ints,
 )
 from stark_anatomy_tpu_torch.utils import checkpoint, telemetry
@@ -231,6 +232,7 @@ class Fri:
         checkpoint_dir: str | None = None,
         checkpoint_meta: dict | None = None,
         big_chunk: int | None = None,
+        round0_host: np.ndarray | None = None,
     ) -> List[int]:
         """Commit + query phases. Returns the top-level query indices.
 
@@ -248,7 +250,11 @@ class Fri:
         round-0 codeword does not fit the card beside its whole tree: round
         0 commits through commit_columns_chunked in chunks of big_chunk
         leaves and moves, with its tree, to the host once round 1 is
-        committed (or at the end of the device rounds)."""
+        committed (or at the end of the device rounds).
+
+        round0_host: with big_chunk, the (4, domain_length) uint32 host
+        array round 0's codeword is copied into (the prover's HostPool,
+        ops/host_pool.py)."""
         mesh = self.mesh
         world = mesh.world if holds_blocks(mesh) else 1
         if codeword_mont.shape[-1] * world != self.domain_length:
@@ -317,7 +323,7 @@ class Fri:
             codewords.append(standard)
             trees.append(tree)
             if big_chunk and r == 1:
-                self._offload_round0(codewords, trees)
+                self._offload_round0(codewords, trees, round0_host)
             proof_stream.push({"fri_root": digest_to_item(tree.root)})
             if r == rounds - 1:
                 break
@@ -326,7 +332,7 @@ class Fri:
             omega = omega * omega % PRIME
             offset = offset * offset % PRIME
         if big_chunk and isinstance(codewords[0], torch.Tensor):
-            self._offload_round0(codewords, trees)
+            self._offload_round0(codewords, trees, round0_host)
 
         last = codewords[-1]
         last_values = words_to_ints(last if isinstance(last, np.ndarray) else host_gather(last, mesh))
@@ -397,12 +403,15 @@ class Fri:
         return commit([standard], self.mesh)
 
     @staticmethod
-    def _offload_round0(codewords, trees) -> None:
-        """Move round 0's codeword and tree to the host; its queries then
-        read the host arrays. The span to-host times the copy."""
+    def _offload_round0(codewords, trees, dst: np.ndarray) -> None:
+        """Move round 0's codeword, into the host array `dst`, and its tree
+        to the host; its queries then read the host arrays. The span to-host
+        times the copy."""
         with telemetry.phase("to-host"):
-            codewords[0] = to_numpy(codewords[0])
-        trees[0].offload_to_host([codewords[0]])
+            copy_to_numpy(dst, codewords[0])
+            copied(dst)
+        codewords[0] = dst
+        trees[0].offload_to_host([dst])
 
     @staticmethod
     def _commit_host(values: List[int]) -> MerkleTree:

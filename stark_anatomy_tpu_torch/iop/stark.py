@@ -70,8 +70,10 @@ bottom levels rebuilt on opening); the transition quotients and the
 combination chunk by chunk into one preallocated codeword, the
 boundary-quotient terms re-derived per chunk from the trace LDE; then the
 zk codeword to the host, and FRI (its round 0 committed chunked and moved to
-the host, iop/fri.py ``prove(big_chunk=)``). Every value is pointwise, so
-the chunks change no byte. The F-point coset evaluations stay whole: at
+the host, iop/fri.py ``prove(big_chunk=)``). The copies to the host land in
+the prover's HostPool (ops/host_pool.py): page-locked arrays on a CUDA
+device, allocated by the first big prove and reused by every later one.
+Every value is pointwise, so the chunks change no byte. The F-point coset evaluations stay whole: at
 F = 2^28 they fit the card beside the rest. A mesh WITHOUT a process group at F >= _BIG_F_MIN is refused
 (ValueError, before any allocation): the big path has no mesh form; prove
 without a mesh, or through a process group, whose prove stays block-local
@@ -122,6 +124,7 @@ from stark_anatomy_tpu_torch.ops.field import (
     primitive_root_of_unity,
     sample_field_element,
 )
+from stark_anatomy_tpu_torch.ops.host_pool import HostPool, copied
 from stark_anatomy_tpu_torch.ops.limbs import (
     bytes_to_words,
     copy_to_numpy,
@@ -324,6 +327,8 @@ class Stark:
     fri_host_tail_n: int = 1 << 14
     mesh: object | None = None
     _cache: dict = dc_field(default_factory=dict, repr=False)
+    #: the big path's host buffers, made by its first prove (ops/host_pool.py)
+    _host_pool: HostPool = dc_field(default_factory=HostPool, init=False, repr=False, compare=False)
 
     def __post_init__(self):
         if self.mesh is not None:
@@ -940,7 +945,7 @@ class Stark:
         tilers = [_chunk_tiler(block, blk) for block in self._periodic_blocks(device)]
         return lambda c: [tiler(c) for tiler in tilers]
 
-    def _boundary_commit_chunked(self, t_lde, bps, blk: int, device):
+    def _boundary_commit_chunked(self, t_lde, bps, blk: int, device, bq_host):
         """Standard-form boundary quotients streamed to host numpy and
         committed chunk by chunk: (the w host (4, F) arrays, their tree).
 
@@ -948,13 +953,13 @@ class Stark:
         chunk pairs c and c + n/2: each pair's quotients go to the
         ChunkedPairCommit and into the host arrays; no F-wide quotient is
         ever on the device. Trees of fewer than MIN_CHUNK_LEAVES leaves a chunk are
-        committed at the end from the host arrays. Spans: to-host around each
-        chunk's copy, merkle-commit around each pair's add and the finish."""
+        committed at the end from the host arrays. bq_host: the w host (4, F)
+        arrays the chunks are copied into. Spans: to-host around each chunk's
+        copy, merkle-commit around each pair's add and the finish."""
         f, w = self.fri_domain_length, len(t_lde)
         half_chunks = f // blk // 2
         base = nttmod.powers(self.omega, blk, device)
         xc = torch.empty_like(base)
-        bq_host = [np.empty((4, f), dtype=np.uint32) for _ in range(w)]
         builder = ChunkedPairCommit(blk, 32 * w) if blk >= MIN_CHUNK_LEAVES else None
         for k in range(half_chunks):
             pair = []
@@ -963,6 +968,7 @@ class Stark:
                 for j, q in enumerate(qs):
                     with telemetry.phase("to-host"):
                         copy_to_numpy(bq_host[j][:, c * blk : (c + 1) * blk], q)
+                        copied(bq_host[j])
                 pair += qs
             if builder is not None:
                 with telemetry.phase("merkle-commit"):
@@ -1031,32 +1037,40 @@ class Stark:
         boundary quotients streamed to the host and committed chunk by chunk
         (chunk transients only); the combination (+4 GiB, chunk transients);
         then the zk codeword to the host, and FRI (its first round committed
-        chunked and moved to the host after the second)."""
-        w = self.num_registers
+        chunked and moved to the host after the second).
+
+        Host memory: the w + 2 codewords copied to the host (boundary
+        quotients, zk codeword, FRI round 0) land in the instance's HostPool
+        (ops/host_pool.py), page-locked on a CUDA device and kept from prove
+        to prove."""
+        f, w = self.fri_domain_length, self.num_registers
         blk = self._big_chunk_len()
         bps = self._boundary_polys(boundary)
-        # The zk codeword depends only on the seed: made first, its root
-        # pushed after bq_root all the same.
-        with _phase("prove.zk-randomizer", device):
-            zk_standard = self._zk_codeword(randomizer_seed, device, draw_chunk=blk)
-            zk_tree = commit_columns_chunked([zk_standard], blk)
-        with _phase("prove.trace-lde", device):
-            t_lde = self._trace_lde(trace, as_bytes, randomizer, device)
-        with _phase("prove.boundary-quotients", device):
-            bq_standard, bq_tree = self._boundary_commit_chunked(t_lde, bps, blk, device)
-        ps.push({"bq_root": digest_to_item(bq_tree.root)})
-        ps.push({"zk_root": digest_to_item(zk_tree.root)})
-        weights = sample_weights(ps.prover_fiat_shamir(), 2 * (self.air.num_constraints + w))
-        with _phase("prove.quotients-combination", device):
-            comb = self._comb_chunked(t_lde, zk_standard, weights, bps, blk, device)
-            t_lde.clear()
-        self._checkpoint(ps, comb, bq_standard, zk_standard, device, checkpoint_dir, ckpt_meta)
-        with _phase("prove.host-offload", device):
-            with telemetry.phase("to-host"):
-                zk_standard = to_numpy(zk_standard)
-            zk_tree.offload_to_host([zk_standard])
-        return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
-                                  device, checkpoint_dir, ckpt_meta)
+        with self._host_pool.checkout(f, w + 2, device) as host:
+            # The zk codeword depends only on the seed: made first, its root
+            # pushed after bq_root all the same.
+            with _phase("prove.zk-randomizer", device):
+                zk_standard = self._zk_codeword(randomizer_seed, device, draw_chunk=blk)
+                zk_tree = commit_columns_chunked([zk_standard], blk)
+            with _phase("prove.trace-lde", device):
+                t_lde = self._trace_lde(trace, as_bytes, randomizer, device)
+            with _phase("prove.boundary-quotients", device):
+                bq_standard, bq_tree = self._boundary_commit_chunked(t_lde, bps, blk, device, host[:w])
+            ps.push({"bq_root": digest_to_item(bq_tree.root)})
+            ps.push({"zk_root": digest_to_item(zk_tree.root)})
+            weights = sample_weights(ps.prover_fiat_shamir(), 2 * (self.air.num_constraints + w))
+            with _phase("prove.quotients-combination", device):
+                comb = self._comb_chunked(t_lde, zk_standard, weights, bps, blk, device)
+                t_lde.clear()
+            self._checkpoint(ps, comb, bq_standard, zk_standard, device, checkpoint_dir, ckpt_meta)
+            with _phase("prove.host-offload", device):
+                with telemetry.phase("to-host"):
+                    copy_to_numpy(host[w], zk_standard)
+                    copied(host[w])
+                zk_standard = host[w]
+                zk_tree.offload_to_host([zk_standard])
+            return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
+                                      device, checkpoint_dir, ckpt_meta, host[w + 1])
 
     def _checkpoint_meta(self, boundary, trace_digest: str, randomizer_seed: bytes) -> dict:
         return {
@@ -1092,7 +1106,8 @@ class Stark:
         codewords (commitment is deterministic, so the roots already in the
         transcript are theirs). Under a group every process keeps its block.
         On the big path both stay host numpy and are re-committed chunk by
-        chunk (commit_columns_chunked uploads one chunk at a time)."""
+        chunk (commit_columns_chunked uploads one chunk at a time), and FRI's
+        round 0 is copied into the instance's HostPool."""
         arrays = loaded["arrays"]
         ps = ProofStream(loaded["items"])
         with _phase("prove.resume-commit", device):
@@ -1109,15 +1124,20 @@ class Stark:
                 zk_standard = upload_block(arrays["zk"], self.mesh, device)
                 zk_tree = commit([zk_standard], self.mesh)
         comb = upload_block(arrays["comb"], self.mesh, device)
+        if self._big:
+            f, w = self.fri_domain_length, self.num_registers
+            with self._host_pool.checkout(f, w + 2, device) as host:
+                return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
+                                          device, checkpoint_dir, ckpt_meta, host[w + 1])
         return self._fri_and_open(ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
                                   device, checkpoint_dir, ckpt_meta)
 
     def _fri_and_open(self, ps, comb, bq_standard, bq_tree, zk_standard, zk_tree,
-                      device, checkpoint_dir, ckpt_meta) -> bytes:
+                      device, checkpoint_dir, ckpt_meta, round0_host=None) -> bytes:
         with _phase("prove.fri", device):
             top_indices = self.fri.prove(
                 comb, ps, checkpoint_dir=checkpoint_dir, checkpoint_meta=ckpt_meta,
-                big_chunk=self._big_chunk_len() if self._big else None)
+                big_chunk=self._big_chunk_len() if self._big else None, round0_host=round0_host)
         with _phase("prove.open", device):
             self._open(ps, top_indices, bq_standard, bq_tree, zk_standard, zk_tree)
         return ps.serialize()

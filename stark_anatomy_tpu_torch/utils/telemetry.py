@@ -34,6 +34,11 @@ the stream after such a copy). Its seconds are the time the host was
 blocked, its calls the number of drains. It does not nest, and on a CPU
 device it opens nothing.
 
+Counts: ``count(name)`` adds one call to the entry ``name`` under the
+innermost open span, as a span's dotted name, and nothing else: its seconds
+stay 0, it records no device event and opens no profiler range. It says how
+often something happened inside a span, such as which route a copy took.
+
 Profiler ranges: while a torch profiler is active, every span also opens a
 ``record_function`` range under the name it was opened with, so a device
 trace names what the host was doing; with none active it opens none.
@@ -232,6 +237,13 @@ def device_wait(device):
     if _state.name == DEVICE_WAIT or _cuda(device) is None:
         return _NO_SPAN
     return _Wait()
+
+
+def count(name: str) -> None:
+    """One call of the calls-only entry `name` under the innermost open span."""
+    full = _state.full + "." + name if _state.full else name
+    with _lock:
+        _totals[full]["calls"] += 1
 
 
 def report() -> Dict[str, Dict[str, float]]:

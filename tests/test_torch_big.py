@@ -291,7 +291,7 @@ def test_fri_with_round_0_committed_chunked_and_offloaded_gives_the_same_transcr
     if resumed:
         # snapshots of every round, then only round 0's kept: the resumed
         # prove replays round 0 (re-committed chunked) and runs the rest
-        fri.prove(cw, ProofStream(), checkpoint_dir=d, big_chunk=2048)
+        fri.prove(cw, ProofStream(), checkpoint_dir=d, big_chunk=2048, round0_host=np.empty((4, n), np.uint32))
         for name in os.listdir(d):
             if not name.startswith("stark-fri-r0."):
                 os.remove(os.path.join(d, name))
@@ -302,16 +302,16 @@ def test_fri_with_round_0_committed_chunked_and_offloaded_gives_the_same_transcr
         chunked.append(self.chunk_leaves)
         return real_finish(self, leaf_columns)
 
-    def offload(codewords, trees):
+    def offload(codewords, trees, dst):
         offloaded.append(len(codewords))
-        real_offload(codewords, trees)
-        assert isinstance(codewords[0], np.ndarray) and isinstance(trees[0].leaf_columns[0], np.ndarray)
+        real_offload(codewords, trees, dst)
+        assert codewords[0] is dst and isinstance(trees[0].leaf_columns[0], np.ndarray)
         assert all(lv is None or isinstance(lv, np.ndarray) for lv in trees[0].levels)
 
     monkeypatch.setattr(ChunkedPairCommit, "finish", finish)
     monkeypatch.setattr(Fri, "_offload_round0", staticmethod(offload))
     forced = ProofStream()
-    assert fri.prove(cw, forced, checkpoint_dir=d, big_chunk=2048) == top
+    assert fri.prove(cw, forced, checkpoint_dir=d, big_chunk=2048, round0_host=np.empty((4, n), np.uint32)) == top
     assert forced.serialize() == ps.serialize()
     assert chunked == [2048]  # round 0 alone, in two chunks of 2048 leaves
     assert offloaded == [2]  # once round 1 is committed

@@ -129,3 +129,103 @@ def test_the_golden_proof_draws_its_zk_coefficients_in_one_kernel_launch(card):
     _build.reset_launch_counts()
     chip_smoke.phase_golden()
     assert _build.launch_counts()["zk_coefficients"] == 1
+
+
+def _big_inputs(chain, device):
+    rp, air, stark = chip_smoke.rescue_setup(chain, 2, device)
+    if chain == 1:
+        return stark, rp.trace(20260817), air.boundary_constraints(rp.hash(20260817)), b"golden-v1"
+    return stark, rp.trace(7, chain), air.boundary_constraints(rp.chain_output(7, chain)), b"big-card"
+
+
+def _card_stark(chain):
+    stark = _big_inputs(chain, "cuda")[0]
+    stark.fri_host_tail_n = 64  # FRI's round 0 on the card, then to the host: the same bytes
+    return stark
+
+
+def _pinned_bytes() -> int:
+    """Bytes of page-locked blocks torch's host allocator holds, in use or cached."""
+    return torch.cuda.host_memory_stats()["allocated_bytes.current"]
+
+
+@pytest.mark.parametrize("chain,chunk", [(1, 256), (15, 1 << 12)], ids=["golden", "chunked-pair-commit"])
+def test_the_forced_big_path_copies_into_pinned_buffers_kept_across_proves(card, monkeypatch, chain, chunk):
+    from stark_anatomy_tpu_torch.iop import stark as stark_mod
+    from stark_anatomy_tpu_torch.ops.host_pool import is_pinned
+    from stark_anatomy_tpu_torch.utils import telemetry
+
+    stark, trace, boundary, seed = _big_inputs(chain, "cpu")
+    want = stark.prove(trace, boundary, randomizer_seed=seed)
+    if chain == 1:
+        with open(chip_smoke.GOLDEN, "rb") as fh:
+            assert want == fh.read()
+    monkeypatch.setattr(stark_mod, "_BIG_F_MIN", 1)
+    monkeypatch.setattr(stark_mod, "_BIG_CHUNK", chunk)
+
+    def prove(stark) -> tuple:
+        telemetry.reset()
+        proof = stark.prove(trace, boundary, randomizer_seed=seed)
+        rep = telemetry.report()
+        return proof, {r: sum(v["calls"] for k, v in rep.items() if k.endswith(".to-host." + r))
+                       for r in ("pinned", "pageable")}
+
+    stark = _card_stark(chain)
+    f = stark.fri_domain_length
+    copies = 2 * f // min(chunk, f // 2) + 2  # w F/blk + 2
+    pointers = []
+    for _ in range(2):
+        proof, routes = prove(stark)
+        assert proof == want and routes == {"pinned": copies, "pageable": 0}
+        arrays = stark._host_pool.arrays
+        assert len(arrays) == 4 and all(is_pinned(a) and a.shape == (4, f) for a in arrays)
+        pointers.append([a.ctypes.data for a in arrays])
+    assert pointers[0] == pointers[1]
+
+    # the page-locked allocation fails: the pool is plain memory, the same bytes
+    real_empty = torch.empty
+
+    def empty(*args, **kwargs):
+        if kwargs.get("pin_memory"):
+            raise RuntimeError("CUDA error: out of memory")
+        return real_empty(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "empty", empty)
+    fresh = _card_stark(chain)
+    proof, routes = prove(fresh)
+    assert proof == want and routes == {"pinned": 0, "pageable": copies}
+    assert not any(is_pinned(a) for a in fresh._host_pool.arrays)
+
+
+def test_a_dropped_or_reshaped_pool_hands_its_page_locked_memory_back(card, monkeypatch):
+    import gc
+
+    from stark_anatomy_tpu_torch.iop import stark as stark_mod
+    from stark_anatomy_tpu_torch.ops.host_pool import HostPool
+
+    monkeypatch.setattr(stark_mod, "_BIG_F_MIN", 1)
+    monkeypatch.setattr(stark_mod, "_BIG_CHUNK", 1 << 12)
+    gc.collect()
+    torch.cuda.init()
+    torch._C._host_emptyCache()
+    base = _pinned_bytes()
+    held = []
+    for chain in (1, 15):  # two provers, two F sizes, one after the other
+        stark, trace, boundary, seed = _big_inputs(chain, "cuda")
+        stark.prove(trace, boundary, randomizer_seed=seed)
+        held.append((stark, 4 * 4 * 4 * stark.fri_domain_length))  # w + 2 = 4 arrays of (4, F) words
+        assert _pinned_bytes() == base + sum(b for _, b in held)
+    del stark
+    for _ in range(2):
+        held.pop(0)
+        gc.collect()
+        assert _pinned_bytes() == base + sum(b for _, b in held)
+
+    pool, cuda = HostPool(), torch.device("cuda")
+    with pool.checkout(1 << 14, 3, cuda):
+        assert _pinned_bytes() == base + 3 * 16 * (1 << 14)
+    with pool.checkout(1 << 12, 2, cuda):  # another shape: the old arrays go back first
+        assert _pinned_bytes() == base + 2 * 16 * (1 << 12)
+    del pool
+    gc.collect()
+    assert _pinned_bytes() == base

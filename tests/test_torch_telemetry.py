@@ -218,6 +218,24 @@ def test_a_pair_not_done_after_a_wait_is_read_later(monkeypatch):
     assert rep["early@device"]["seconds"] == pytest.approx(1.0) and rep["late@device"]["seconds"] == pytest.approx(2.0)
     assert clock.waits == 1
 
+def test_a_count_adds_calls_alone_under_the_open_span(monkeypatch):
+    clock = fake_events(monkeypatch)
+    with telemetry.device_phase("outer", "cuda"):
+        with telemetry.phase("to-host"):
+            events = clock.events
+            telemetry.count("pinned")
+            telemetry.count("pinned")
+            assert clock.events == events  # no device event
+        telemetry.count("pageable")
+    telemetry.count("bare")
+    rep = telemetry.report()
+    assert {k: v for k, v in rep.items() if k.endswith(("pinned", "pageable", "bare"))} == {
+        "outer.to-host.pinned": {"seconds": 0.0, "calls": 2}, "outer.pageable": {"seconds": 0.0, "calls": 1},
+        "bare": {"seconds": 0.0, "calls": 1}}
+    assert set(rep) == {"outer", "outer@device", "outer.to-host", "outer.to-host@device",
+                        "outer.to-host.pinned", "outer.pageable", "bare"}
+
+
 def test_device_wait_is_nothing_on_the_cpu():
     telemetry.reset()
     with telemetry.phase("outer"):
