@@ -39,8 +39,9 @@ exits non-zero:
            native host batch ops against FieldElement on 4096 values
   inv      field_kernels.inv alone at the prove's shape (2^24 elements): the
            launches of one call, device and host time, equal to field_torch.inv
-  mesh     the mesh path on the one card (8 shards in one process, so an
-           exchange is a permuted copy on the device): the sharded NTT in its
+  mesh     the mesh path on the one card (8 shards in a world of one
+           process, no process group: the block-local prover, every
+           exchange staying on the device): the sharded NTT in its
            three layouts for 2, 8, 128 and 256 shards (256: the column
            transforms one ntt_block a column), the sharded LDE and the
            sharded pair-leaf commit against their single-device versions, and
@@ -48,7 +49,7 @@ exits non-zero:
            full phase's proof, cold and warm beside a single-device prove;
            a small run on cuda and on cpu, bytes identical
   dist     the same sharded NTT through a one-process torch.distributed
-           group (nccl): the process-group branch of the exchange; then
+           group (nccl): the exchange through all_to_all_single; then
            chain 32765 through Stark(mesh=make_mesh(8, group=...)), the
            block-local prover that W processes run, here with W = 1: the
            bytes of the full phase's proof, verifies, cold and warm prove,
@@ -992,7 +993,8 @@ def full_inputs(chain: int, full_run: tuple | None) -> tuple:
 
 def phase_mesh(chain: int = 32765, full_run: tuple | None = None, log_n: int = 20,
                shard_counts: tuple = (2, 8, 128, 256)) -> dict:
-    """The mesh path on the one card: MESH_SHARDS shards in one process."""
+    """The mesh path on the one card: MESH_SHARDS shards in a world of one
+    process, made without a process group."""
     from stark_anatomy_tpu_torch.iop.merkle import commit_columns
     from stark_anatomy_tpu_torch.iop.stark import Stark
     from stark_anatomy_tpu_torch.ops import _build
@@ -1101,7 +1103,7 @@ def phase_mesh(chain: int = 32765, full_run: tuple | None = None, log_n: int = 2
 
 def phase_dist(chain: int = 32765, full_run: tuple | None = None, log_n: int = 20) -> dict:
     """Through a torch.distributed group of this one process (nccl): the
-    sharded NTT (the process-group branch of Mesh.all_to_all on the card),
+    sharded NTT (Mesh._exchange through all_to_all_single on the card),
     then the block-local prove that W processes run, here at W = 1, on the
     full phase's inputs: its bytes, cold and warm times, phase split,
     exchanges, launches and peak device memory."""
@@ -1120,7 +1122,7 @@ def phase_dist(chain: int = 32765, full_run: tuple | None = None, log_n: int = 2
             raise AssertionError("distributed.init did not initialise a process group")
         try:
             mesh = make_mesh(MESH_SHARDS, group=distributed.world_group())
-            if mesh.world != 1 or mesh.group is None:
+            if mesh.world != 1:
                 raise AssertionError("expected a one-process group")
             # a mesh with a group exchanges through all_to_all_single, also when
             # the group is this process alone

@@ -16,12 +16,12 @@ Szepieniec's "Anatomy of a STARK"), same transcript:
 - the Fiat-Shamir transcript, index sampling, colinearity checks and path
   verification are host-side exact integer work;
 - with ``mesh`` (parallel/mesh.py) every device commit is the sharded one
-  (parallel/merkle_sharded.py). A mesh with a process group spreads the
-  codeword over its W processes: each holds its (4, n/W) block, a fold
-  brings its row pairs with one exchange (``pair_exchange``), the host tail
-  starts from the gathered codeword on every process, and the queries read
-  the blocks through one ``owner_gather``. Proof bytes do not depend on the
-  mesh and the verifier never looks at it;
+  (parallel/merkle_sharded.py) and the codeword is spread over the mesh's W
+  processes (one without a process group): each holds its (4, n/W) block,
+  a fold brings its row pairs with one exchange (``pair_exchange``), the
+  host tail starts from the gathered codeword on every process, and the
+  queries read the blocks through one ``owner_gather``. Proof bytes do not
+  depend on the mesh and the verifier never looks at it;
 - with ``checkpoint_dir`` every committed round's standard-form codeword is
   snapshotted (utils/checkpoint.py, stage ``fri-r{r}``), host-tail rounds
   included, and a later call replays the completed rounds from disk;
@@ -49,7 +49,6 @@ from typing import List, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from stark_anatomy_tpu_torch import native
 from stark_anatomy_tpu_torch.iop.merkle import (
@@ -89,8 +88,8 @@ from stark_anatomy_tpu_torch.utils.encoding import (
     nonce_to_item,
     pow_digest_ok,
 )
-from stark_anatomy_tpu_torch.parallel.merkle_sharded import commit_sharded, pair_exchange
-from stark_anatomy_tpu_torch.parallel.mesh import block_start, holds_blocks, host_gather, upload_block
+from stark_anatomy_tpu_torch.parallel.merkle_sharded import commit_sharded
+from stark_anatomy_tpu_torch.parallel.mesh import block_start, host_gather, pair_exchange, upload_block
 
 
 def commit(columns, mesh=None, pair: bool = True) -> MerkleTree:
@@ -105,31 +104,28 @@ def commit(columns, mesh=None, pair: bool = True) -> MerkleTree:
 
 
 def snapshot(directory: str, stage: str, items: list, arrays: dict, meta: dict, mesh=None) -> None:
-    """checkpoint.save of host arrays and device tensors. Under a mesh with
-    a group the tensors are blocks: every process joins their gather, the
-    group's first process alone writes (distributed.is_controller() for the
-    world group), and all wait for the files at a barrier. The files are
-    those a single-process prove writes."""
+    """checkpoint.save of host arrays and device tensors. Under a mesh the
+    tensors are blocks: every process joins their gather, the mesh's first
+    process alone writes (distributed.is_controller() for the world group),
+    and all wait for the files at the mesh's barrier. The files are those a
+    prove without a mesh writes."""
     host = {k: v if isinstance(v, np.ndarray) else host_gather(v, mesh) for k, v in arrays.items()}
-    if not holds_blocks(mesh):
+    if mesh is None or mesh.rank == 0:
         checkpoint.save(directory, stage, items, host, meta)
-        return
-    if mesh.rank == 0:
-        checkpoint.save(directory, stage, items, host, meta)
-    dist.barrier(group=mesh.group)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def fold(codeword_mont: torch.Tensor, alpha: int, offset: int, omega: int, mesh=None) -> torch.Tensor:
     """One FRI fold. codeword: (4, n) Montgomery form on offset*<omega>.
 
     Returns the length-n/2 codeword of the alpha-combined even/odd parts,
-    living on the squared domain offset^2 * <omega^2>. Under a mesh with a
-    group the codeword is this process's (4, n/W) block and so is the
-    result: pair_exchange brings rows i and i + n/2 of the output block's
-    rows, and the inverse domain starts at the block's first row. The span
-    fri-fold."""
+    living on the squared domain offset^2 * <omega^2>. Under a mesh the
+    codeword is this process's (4, n/W) block and so is the result:
+    pair_exchange brings rows i and i + n/2 of the output block's rows, and
+    the inverse domain starts at the block's first row. The span fri-fold."""
     with telemetry.phase("fri-fold"):
-        if holds_blocks(mesh):
+        if mesh is not None:
             pairs = pair_exchange(codeword_mont, mesh)
             half = pairs.shape[1]
             lo, hi = pairs[:4], pairs[4:]
@@ -164,8 +160,8 @@ class Fri:
     grinding_bits: proof-of-work bits ground into the transcript before
     query sampling (0 = no pow item); host_tail_n: codewords of at most this
     length finish on the host (it changes no transcript byte); mesh: an
-    optional parallel.Mesh for the commits; with a process group, prove
-    takes this process's block of the codeword.
+    optional parallel.Mesh; prove then takes this process's block of the
+    codeword.
     """
 
     offset: int
@@ -238,7 +234,7 @@ class Fri:
 
         codeword_mont: (4, domain_length) Montgomery-form codeword to be
         proven close to degree < domain_length / expansion_factor (under a
-        mesh with a group: this process's (4, domain_length / W) block).
+        mesh: this process's (4, domain_length / W) block).
 
         checkpoint_dir / checkpoint_meta: when set, each committed round's
         standard-form codeword is snapshotted; a rerun with the same meta
@@ -256,7 +252,7 @@ class Fri:
         array round 0's codeword is copied into (the prover's HostPool,
         ops/host_pool.py)."""
         mesh = self.mesh
-        world = mesh.world if holds_blocks(mesh) else 1
+        world = 1 if mesh is None else mesh.world
         if codeword_mont.shape[-1] * world != self.domain_length:
             raise ValueError("codeword length != configured domain length")
         checkpoint_meta = checkpoint_meta or {}
@@ -265,7 +261,7 @@ class Fri:
         device = codeword_mont.device
 
         # Per round: the committed codeword in standard form (a tensor, this
-        # process's block under a group; or a whole (4, n) numpy array once
+        # process's block under a mesh; or a whole (4, n) numpy array once
         # on the host tail) and its tree. `codeword` is the next round's
         # input: a Montgomery tensor, or standard host ints on the tail.
         codewords: List = []
@@ -361,7 +357,7 @@ class Fri:
         # Query phase. Round r opens PAIR leaf i_r of tree r, which binds both
         # colinearity values (a = c[i], b = c[i + half]) with one path. Every
         # gather of every round (codeword columns + sibling digests) goes
-        # through ONE device gather and ONE transfer; under a group ONE
+        # through ONE device gather and ONE transfer; under a mesh ONE
         # owner_gather of the blocks (global indices).
         indices = list(top_indices)
         requests: List = []
@@ -426,14 +422,14 @@ class Fri:
     def _on_host(self, n: int, world: int) -> bool:
         """True for a round whose length-n codeword finishes on the host:
         at most host_tail_n, or too short to cut into pair halves of W
-        blocks (n < 2W) under a group."""
+        blocks (n < 2W) under a mesh."""
         return n <= self.host_tail_n or n < 2 * world
 
     def _host_tail(self, values, start_round, rounds, omega, offset, codewords, trees,
                    proof_stream, checkpoint_dir, checkpoint_meta, mesh) -> None:
         """Run rounds start_round..rounds-1 in exact host arithmetic from the
         standard-form values of the round's codeword (one device->host copy
-        of the small codeword, gathered under a group): native C folds and
+        of the small codeword, gathered under a mesh): native C folds and
         hashlib commits; identical values, roots and snapshots on every
         process."""
         for r in range(start_round, rounds):

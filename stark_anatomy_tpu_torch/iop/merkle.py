@@ -100,10 +100,9 @@ def gather_requests(requests, mesh=None) -> List[np.ndarray]:
     concatenated device gather and ONE device->host copy. Returns, per
     request, a (k, len(indices)) uint32 numpy array.
 
-    mesh: a parallel.Mesh whose group spreads the codewords over processes;
-    every tensor is then this process's block of a block-sharded array, the
-    indices are global, and all tensor requests go through ONE
-    ``Mesh.owner_gather`` (one all_reduce). Levels a tree keeps on the
+    mesh: a parallel.Mesh; every tensor is then this process's block of a
+    block-sharded array, the indices are global, and all tensor requests go
+    through ONE ``Mesh.owner_gather`` (one exchange). Levels a tree keeps on the
     host never become requests (MerkleTree._prefetch_plan)."""
     out: List = [None] * len(requests)
     on_device = []
@@ -118,7 +117,7 @@ def gather_requests(requests, mesh=None) -> List[np.ndarray]:
     # One device-wait: each index list's upload from pageable memory drains
     # the stream, and so does the copy back.
     with telemetry.device_wait(dev_requests[0][0].device):
-        if mesh is not None and mesh.group is not None:
+        if mesh is not None:
             parts = [p.reshape(-1) for p in mesh.owner_gather(dev_requests)]
         else:
             parts = []

@@ -41,15 +41,16 @@ device and on the host, and describes its constant columns as
 ``constant_columns_bytes(O)`` or ``constant_columns(O)`` (each column
 extended like a trace column; none at all is valid).
 
-``Stark(mesh=...)`` (parallel/mesh.py ``make_mesh``) cuts every column's
-domain into the mesh's shards: the trace columns are extended through the
-four-step sharded transforms (parallel/ntt_sharded.py) and every device
-commit is the sharded one (parallel/merkle_sharded.py). Without a process
-group the mesh lives in one process and the elementwise phases work on
-whole tensors. With one (of any size, one process included) the prove is
-block-local: every process calls ``prove`` with the same trace, boundary
-and seed, and holds only its (4, F/W) natural-layout block of every
-codeword, global columns [rank*F/W, (rank+1)*F/W). Tables (x^s, the
+The prover has two modes. Without a mesh, every codeword is one whole
+tensor on ``device``. ``Stark(mesh=...)`` (parallel/mesh.py ``make_mesh``)
+cuts every column's domain into the mesh's S shards over the W processes of
+its world (one process for a mesh made without a process group): the trace
+columns are extended through the four-step sharded transforms
+(parallel/ntt_sharded.py), every device commit is the sharded one
+(parallel/merkle_sharded.py), and the prove is block-local: every process
+calls ``prove`` with the same trace, boundary and seed, and holds only its
+(4, F/W) natural-layout block of every codeword, global columns
+[rank*F/W, (rank+1)*F/W). Tables (x^s, the
 periodic constants, the zerofier tile) are built for the block alone, the
 zk coefficients are drawn in the cyclic layout the sharded coset
 evaluation takes, the next-row codewords take a halo of F/O columns from
@@ -73,11 +74,11 @@ zk codeword to the host, and FRI (its round 0 committed chunked and moved to
 the host, iop/fri.py ``prove(big_chunk=)``). The copies to the host land in
 the prover's HostPool (ops/host_pool.py): page-locked arrays on a CUDA
 device, allocated by the first big prove and reused by every later one.
-Every value is pointwise, so the chunks change no byte. The F-point coset evaluations stay whole: at
-F = 2^28 they fit the card beside the rest. A mesh WITHOUT a process group at F >= _BIG_F_MIN is refused
-(ValueError, before any allocation): the big path has no mesh form; prove
-without a mesh, or through a process group, whose prove stays block-local
-at any F.
+Every value is pointwise, so the chunks change no byte. The F-point coset
+evaluations stay whole: at F = 2^28 they fit the card beside the rest. The
+big path has no mesh form: a mesh whose block F/W reaches _BIG_F_MIN is
+refused (ValueError, before any allocation); prove without a mesh, or over
+more processes.
 
 ``prove(checkpoint_dir=...)`` snapshots the expensive intermediates before
 FRI and after every FRI round (utils/checkpoint.py) and resumes from them.
@@ -135,13 +136,7 @@ from stark_anatomy_tpu_torch.ops.limbs import (
     to_tensor,
     words_to_ints,
 )
-from stark_anatomy_tpu_torch.parallel.mesh import (
-    block_start,
-    holds_blocks,
-    roll_left,
-    shard,
-    upload_block,
-)
+from stark_anatomy_tpu_torch.parallel.mesh import block_start, roll_left, shard, upload_block
 from stark_anatomy_tpu_torch.parallel.ntt_sharded import (
     CYCLIC,
     cyclic_indices,
@@ -204,8 +199,8 @@ def _lagrange_coeffs(points: List[Tuple[int, int]]) -> List[int]:
 
 def _block(n: int, mesh) -> Tuple[int, int]:
     """(first global column, width) of this process's part of a length-n
-    codeword: its block under a mesh with a group, else the whole."""
-    if holds_blocks(mesh):
+    codeword: its block under a mesh, else the whole."""
+    if mesh is not None:
         return block_start(n, mesh), n // mesh.world
     return 0, n
 
@@ -238,6 +233,19 @@ def _horner(coeffs: List[int], x: torch.Tensor, out: torch.Tensor) -> torch.Tens
             fk.mont_mul(out, x, out=out)
         fk.add(out, mont(coeffs[d]), out=out)
     return out
+
+
+def _add_lifted(acc, term, s: int, table, scale: int, weights) -> None:
+    """acc += (alpha + beta * x^s) * term, Montgomery, in place on term and
+    acc, for weights (alpha, beta). x^s = scale * table at the term's points
+    (table None for s = 0): 4 launches, 2 for s = 0."""
+    alpha, beta = weights
+    if s:
+        lift = fk.add(fk.mont_mul(table, mont(beta * scale % PRIME)), mont(alpha))
+        fk.mont_mul(lift, term, out=term)
+    else:
+        fk.mont_mul(term, mont((alpha + beta) % PRIME), out=term)
+    fk.add(acc, term, out=acc)
 
 
 def _tile(period: torch.Tensor, start: int, count: int) -> torch.Tensor:
@@ -314,8 +322,8 @@ class Stark:
     (iop/fri.py); adds directly to the FRI soundness bits.
     fri_host_tail_n: FRI codewords of at most this length finish on the host.
     mesh: an optional parallel.Mesh; the prover then runs on the mesh's
-    device (``device`` is set from it) through the sharded transforms and
-    commits, block-local when the mesh has a process group.
+    device (``device`` is set from it), block-local, through the sharded
+    transforms and commits.
     """
 
     air: object
@@ -543,23 +551,17 @@ class Stark:
         """Host field elements -> (4, n) Montgomery word planes on device."""
         return to_tensor(ints_to_words([mont(v) for v in values]), device)
 
-    @property
-    def _group_mesh(self):
-        """The mesh when it has a process group (the prove is then
-        block-local), else None."""
-        return self.mesh if holds_blocks(self.mesh) else None
-
     def _x_pow_codeword(self, s: int, device) -> torch.Tensor:
         """(4, F) Montgomery evals of x^s on the FRI coset (this process's
-        block under a group: the powers table starts at its first column)."""
+        block under a mesh: the powers table starts at its first column)."""
         start, count = _block(self.fri_domain_length, self.mesh)
         tab = nttmod.powers(pow(self.omega, s, PRIME), count, device, start=start)
         return fk.mont_mul(tab, mont(pow(self.offset, s, PRIME)), out=tab)
 
     def column_lde_words(self, words: np.ndarray, device, mesh=None) -> torch.Tensor:
         """(4, O) uint32 standard-form column -> (4, F) Montgomery LDE,
-        through the sharded transforms under `mesh` (this process's block
-        under a group: only its block of the column is uploaded)."""
+        through the sharded transforms under `mesh` (this process's block:
+        only its block of the column is uploaded)."""
         o = self.omicron_domain_length
         if words.shape != (4, o):
             raise ValueError(f"expected (4, {o}) word planes, got {words.shape}")
@@ -576,11 +578,11 @@ class Stark:
             column = to_tensor(words, device)
         with telemetry.phase("lde-ntt"):
             lde = nttmod.coset_evaluate(nttmod.intt(fk.to_mont(column)), f, self.offset)
-        return shard(lde, mesh) if holds_blocks(mesh) else lde
+        return lde if mesh is None else shard(lde, mesh)
 
     def _constants_codewords(self, device, mesh=None) -> List[torch.Tensor]:
         """(4, F) Montgomery codewords of the AIR's constant columns
-        (under a mesh with a group: this process's blocks).
+        (under a mesh: this process's blocks).
 
         Periodic AIRs (periodic_columns): the codeword over the FRI coset
         repeats with period blk = period * F/O, so ONE blk-length block is
@@ -632,12 +634,11 @@ class Stark:
 
     def _excluded_codeword(self, device) -> torch.Tensor:
         """(4, F) Montgomery evals of the excluded-row factor on the FRI
-        coset, via ONE coset NTT of _excluded_coeffs. Under a group: the
+        coset, via ONE coset NTT of _excluded_coeffs. Under a mesh: the
         coefficients zero-padded to n >= S^2, each process uploads the ones
         it holds in CYCLIC layout, and the sharded coset evaluation (local
         scale and pad) leaves its natural block."""
-        coeffs, f = self._excluded_coeffs(), self.fri_domain_length
-        mesh = self._group_mesh
+        coeffs, f, mesh = self._excluded_coeffs(), self.fri_domain_length, self.mesh
         n = 0 if mesh is None else max(_next_pow2(len(coeffs)), mesh.shards ** 2)
         if mesh is None or n > f or not four_step_fits(f, mesh.shards):
             cw = nttmod.coset_evaluate(self._mont_column(coeffs, device), f, self.offset)
@@ -681,7 +682,7 @@ class Stark:
         batched inversion for all registers' zerofiers (every zerofier is
         nonvanishing on the FRI coset: trace and FRI domains are disjoint).
         x_cw: the Montgomery points of t_lde's columns (default: the FRI
-        coset, this process's block of it under a group)."""
+        coset, this process's block of it under a mesh)."""
         w = len(t_lde)
         if x_cw is None:
             x_cw = self._x_pow_codeword(1, device)
@@ -738,7 +739,7 @@ class Stark:
         by one conditional subtract (add with zero). Multiplying by 2^128 IS
         the Montgomery lift, so X mod p = to_mont(hi) + lo.
 
-        Under a group each process draws only the coefficients it holds in
+        Under a mesh each process draws only the coefficients it holds in
         CYCLIC layout (counters of the whole draw, utils/threefry.py), and
         the sharded coset evaluation takes them as they are: no process
         holds the coefficient array.
@@ -746,8 +747,7 @@ class Stark:
         draw_chunk: draw the coefficients that many columns at a time (the
         same bits; the big path's bound on the plain route's int64
         temporaries, which the kernel does not have)."""
-        n, f = self.degree_target + 1, self.fri_domain_length
-        mesh = self._group_mesh
+        n, f, mesh = self.degree_target + 1, self.fri_domain_length, self.mesh
         local = mesh is not None and four_step_fits(n, mesh.shards)
         digest = hashlib.sha256(_ZK_TAG + seed).digest()
         key = np.frombuffer(digest[:8], dtype="<u4")
@@ -771,16 +771,24 @@ class Stark:
 
     def _next_rows(self, t: torch.Tensor) -> torch.Tensor:
         """The codeword one trace row on: t rolled left by e = F/O columns
-        (under a group this process's block of it: its block shifted left
+        (under a mesh this process's block of it: its block shifted left
         with the next block's first e columns appended, roll_left)."""
-        if self._group_mesh is None:
+        if self.mesh is None:
             return torch.roll(t, -self.expansion_shift, dims=1)
-        return roll_left(t, self.expansion_shift, self._group_mesh)
+        return roll_left(t, self.expansion_shift, self.mesh)
+
+    def _term_shifts(self, bps) -> List[int]:
+        """The power s of x that lifts each combination term to degree_target:
+        the transition quotients', then each register's boundary quotient's."""
+        o = self.omicron_domain_length
+        degrees = [self.transition_quotient_degree] * self.air.num_constraints + [
+            o - 1 - len(bp["roots"]) for bp in bps
+        ]
+        return [self.degree_target - deg for deg in degrees]
 
     def _combination(self, t_lde, bq_standard, zk_standard, bps, weights, device):
         """Transition quotients and the weighted combination codeword, every
         term lifted to degree_target; the zk randomizer enters with weight 1."""
-        o, w = self.omicron_domain_length, self.num_registers
         nxt = [self._next_rows(t) for t in t_lde]
         terms = list(self.air.eval_transition_device(
             t_lde, nxt, self._constants_codewords(device, self.mesh)))
@@ -789,24 +797,15 @@ class Stark:
         for c in terms:
             fk.mont_mul(c, zt_inv, out=c)
         del zt_inv
-        degrees = [self.transition_quotient_degree] * self.air.num_constraints + [
-            o - 1 - len(bps[j]["roots"]) for j in range(w)
-        ]
-        shifts = [self.degree_target - deg for deg in degrees]
+        shifts = self._term_shifts(bps)
         tables = {s: self._x_pow_codeword(s, device) for s in sorted({s for s in shifts if s})}
         comb = fk.to_mont(zk_standard)
         for t_idx, s in enumerate(shifts):
-            alpha, beta = weights[2 * t_idx], weights[2 * t_idx + 1]
             if t_idx < len(terms):
                 term, terms[t_idx] = terms[t_idx], None
             else:
                 term = fk.to_mont(bq_standard[t_idx - len(terms)])
-            if s:
-                lift = fk.add(fk.mont_mul(tables[s], mont(beta)), mont(alpha))
-                fk.mont_mul(lift, term, out=term)
-            else:
-                fk.mont_mul(term, mont((alpha + beta) % PRIME), out=term)
-            fk.add(comb, term, out=comb)
+            _add_lifted(comb, term, s, tables.get(s), 1, weights[2 * t_idx : 2 * t_idx + 2])
         return comb
 
     def prove(
@@ -834,11 +833,11 @@ class Stark:
         the same trace, boundary and seed resumes from the latest of them to
         the same bytes. A snapshot of other inputs is refused.
         """
-        if self.fri_domain_length >= _BIG_F_MIN and self.mesh is not None and not holds_blocks(self.mesh):
+        if self.mesh is not None and self.fri_domain_length // self.mesh.world >= _BIG_F_MIN:
             raise ValueError(
-                f"F = {self.fri_domain_length} takes the chunked big-domain path (F >= _BIG_F_MIN = "
-                f"{_BIG_F_MIN}), which has no mesh form: prove without a mesh, or through the group "
-                "prove (a mesh with a process group, block-local at any F)")
+                f"a mesh block of F/W = {self.fri_domain_length // self.mesh.world} columns reaches the "
+                f"chunked big-domain size (_BIG_F_MIN = {_BIG_F_MIN}), which has no mesh form: prove "
+                "without a mesh, or over more processes")
         device = require_device(self.device)
         if randomizer_seed is None:
             randomizer_seed = os.urandom(32)
@@ -988,12 +987,8 @@ class Stark:
         and of its roll by one trace row, the boundary-quotient terms
         re-derived from t_lde (_bq_domain_chunk), and the
         x^shift lifts from one table a shift scaled per chunk."""
-        o, f, w = self.omicron_domain_length, self.fri_domain_length, self.num_registers
-        e = self.expansion_shift
-        degrees = [self.transition_quotient_degree] * self.air.num_constraints + [
-            o - 1 - len(bps[j]["roots"]) for j in range(w)
-        ]
-        shifts = [self.degree_target - deg for deg in degrees]
+        f, e = self.fri_domain_length, self.expansion_shift
+        shifts = self._term_shifts(bps)
         shift_base = {s: nttmod.powers(pow(self.omega, s, PRIME), blk, device)
                       for s in sorted({s for s in shifts if s})}
         constants = self._constant_chunks(blk, device)
@@ -1016,15 +1011,9 @@ class Stark:
             terms += [fk.to_mont(q, out=q) for q in self._bq_domain_chunk(t_lde, bps, c, xc, device)]
             out = fk.to_mont(zk_standard[:, sl], out=comb[:, sl])
             for t_idx, s in enumerate(shifts):
-                alpha, beta = weights[2 * t_idx], weights[2 * t_idx + 1]
                 term, terms[t_idx] = terms[t_idx], None
-                if s:
-                    x_s = pow(self.offset, s, PRIME) * pow(self.omega, s * c * blk, PRIME)
-                    lift = fk.add(fk.mont_mul(shift_base[s], mont(beta * x_s % PRIME)), mont(alpha))
-                    fk.mont_mul(lift, term, out=term)
-                else:
-                    fk.mont_mul(term, mont((alpha + beta) % PRIME), out=term)
-                fk.add(out, term, out=out)
+                x_s = pow(self.offset, s, PRIME) * pow(self.omega, s * c * blk, PRIME)
+                _add_lifted(out, term, s, shift_base.get(s), x_s, weights[2 * t_idx : 2 * t_idx + 2])
         return comb
 
     def _prove_big(self, ps, trace, as_bytes, boundary, randomizer, randomizer_seed, device,
@@ -1104,7 +1093,7 @@ class Stark:
         combination come from disk, and the boundary-quotient and
         zk-randomizer trees are re-committed from their saved standard-form
         codewords (commitment is deterministic, so the roots already in the
-        transcript are theirs). Under a group every process keeps its block.
+        transcript are theirs). Under a mesh every process keeps its block.
         On the big path both stay host numpy and are re-committed chunk by
         chunk (commit_columns_chunked uploads one chunk at a time), and FRI's
         round 0 is copied into the instance's HostPool."""
@@ -1146,7 +1135,7 @@ class Stark:
         """Open the boundary-quotient rows and zk-randomizer values the
         verifier needs: ALL gathers (codeword columns + Merkle digests of
         both trees) go through one device gather and one transfer (under a
-        group one owner_gather of the blocks; over several processes the
+        mesh one owner_gather of the blocks; over several processes the
         tree levels are on the host, see parallel/merkle_sharded.py; host
         codewords of the big path are read where they are)."""
         f, e = self.fri_domain_length, self.expansion_shift
@@ -1299,9 +1288,7 @@ class Stark:
                 const_at[idx] = [int(g[pos]) for g in gathered]
 
         excluded = [pow(self.omicron, r, PRIME) for r in range(self.trace_length - 1, o)]
-        degrees = [self.transition_quotient_degree] * self.air.num_constraints + [
-            o - 1 - len(bps[j]["roots"]) for j in range(w)
-        ]
+        shifts = self._term_shifts(bps)
 
         for i, comb_val in top_points:
             i2 = (i + e) % f
@@ -1322,9 +1309,8 @@ class Stark:
             zt_inv = zt_inv * finv((pow(x, o, PRIME) - 1) % PRIME) % PRIME
             terms = [c * zt_inv % PRIME for c in cons] + list(bq_vals[i])
             combo = zk_vals[i]
-            for t_idx, (term, deg) in enumerate(zip(terms, degrees)):
+            for t_idx, (term, shift) in enumerate(zip(terms, shifts)):
                 alpha, beta = weights[2 * t_idx], weights[2 * t_idx + 1]
-                shift = self.degree_target - deg
                 combo = (combo + (alpha + beta * pow(x, shift, PRIME)) * term) % PRIME
             if combo != comb_val % PRIME:
                 return False

@@ -9,13 +9,12 @@ slices of the global levels, so the tree equals iop/merkle.py
 ``commit_columns`` in its root, in every level and in every opening, for
 every mesh.
 
-In one process the S blocks are slices of one tensor, so each level is ONE
-hash launch over all shards, and the levels stay on the device (as
-``(16, m)`` digest planes, natural order) for the openings. Over several
-processes each hashes the blocks of its own shards and every level is
-gathered to the host of every process. Under a process group (one process
-included) the pair leaves come through ``pair_exchange``, the exchange the
-block-local FRI fold (iop/fri.py) shares. Levels are kept in natural order;
+Each process hashes the blocks of its own shards in ONE hash launch a
+level; pair leaves come through ``pair_exchange`` (parallel/mesh.py), the
+exchange the block-local FRI fold (iop/fri.py) shares. In a world of one
+process the levels stay on the device (as ``(16, m)`` digest planes,
+natural order) for the openings; over several processes every level is
+gathered to the host of every process. Levels are kept in natural order;
 the bit-reversed lane order of the TPU kernels is not carried over.
 """
 
@@ -25,47 +24,16 @@ from typing import List, Sequence
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from stark_anatomy_tpu_torch.iop.merkle import (
     MerkleTree,
     _host_hash_level,
     commit_columns,
     leaf_word_planes,
-    pair_columns,
 )
 from stark_anatomy_tpu_torch.ops.blake2b_kernels import blake2b_planes, merkle_node_hash
 from stark_anatomy_tpu_torch.ops.limbs import to_numpy
-from stark_anatomy_tpu_torch.parallel.mesh import Mesh, gather, host_gather
-
-
-def pair_exchange(t: torch.Tensor, mesh: Mesh) -> torch.Tensor:
-    """Rows i and i + n/2 of a block-sharded ``(k, n/W)`` tensor, brought to
-    the process that owns output row i of the length-n/2 half:
-    ``(2k, n/(2W))``, every plane's first-half rows, then every plane's
-    second-half rows (the pair leaves of a commit, the pairs of a FRI fold).
-
-    Cut the global rows into 2W half-blocks; process p holds half-blocks 2p
-    and 2p + 1, and process r needs half-block r (first halves) and W + r
-    (second halves). So every process sends its two half-blocks to the
-    processes 2p mod W and 2p + 1 mod W and receives two, in ONE
-    ``all_to_all_single`` with uneven splits; what arrives is already in
-    source order = first half, then second half. One process sends both to
-    itself."""
-    w, rank = mesh.world, mesh.rank
-    k, block = t.shape
-    if block % 2:
-        raise ValueError(f"a block of {block} columns does not split into pair halves")
-    half = block // 2
-    size = k * half
-    send = torch.cat([t[:, :half].reshape(-1), t[:, half:].reshape(-1)])
-    recv = torch.empty_like(send)
-    send_sizes, recv_sizes = [0] * w, [0] * w
-    for b in (0, 1):
-        send_sizes[(2 * rank + b) % w] += size
-        recv_sizes[(b * w + rank) // 2] += size
-    dist.all_to_all_single(recv, send, recv_sizes, send_sizes, group=mesh.group)
-    return recv.reshape(2 * k, half)
+from stark_anatomy_tpu_torch.parallel.mesh import Mesh, gather, host_gather, pair_exchange
 
 
 def _rows(level: np.ndarray) -> np.ndarray:
@@ -80,9 +48,8 @@ def commit_sharded(columns: Sequence[torch.Tensor], mesh: Mesh, pair: bool = Fal
     layout). Returns a MerkleTree whose root, levels and openings equal
     iop/merkle.py ``commit_columns(columns, pair)`` of the whole columns;
     with several processes every process holds the whole tree, on the host.
-    pair=True commits pair leaves (iop/merkle.py pair_columns); under a group
-    row j and its partner j + n/2 start on different processes, see
-    pair_exchange."""
+    pair=True commits pair leaves (iop/merkle.py pair_columns): row j and its
+    partner j + n/2 may start on different processes, see pair_exchange."""
     s, w = mesh.shards, mesh.world
     rows = columns[0].shape[-1] * w
     leaves = rows // 2 if pair else rows
@@ -95,12 +62,9 @@ def commit_sharded(columns: Sequence[torch.Tensor], mesh: Mesh, pair: bool = Fal
         if w > 1:
             tree.offload_to_host()
         return tree
-    if not pair:
-        msg = leaf_word_planes(columns)
-    elif mesh.group is None:
-        msg = leaf_word_planes(pair_columns(columns))
-    else:
-        msg = pair_exchange(leaf_word_planes(columns), mesh)
+    msg = leaf_word_planes(columns)
+    if pair:
+        msg = pair_exchange(msg, mesh)
     cur = blake2b_planes(msg, 4 * msg.shape[0])
     device_levels: List[torch.Tensor] = [cur]
     while cur.shape[1] > mesh.local_shards:  # down to one root per shard

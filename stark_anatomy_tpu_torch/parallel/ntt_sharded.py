@@ -253,7 +253,7 @@ def sharded_coset_evaluate(
     transform takes cyclic directly. With natural input the pad moves block
     boundaries, so several processes gather the (shorter) coefficient array
     and each cuts its block of the padded one: the block-local prover
-    (``Stark.prove`` under a group) takes the cyclic branch only."""
+    (``Stark.prove`` under a mesh) takes the cyclic branch only."""
     n = coeffs_mont.shape[-1] * mesh.world
     if n > domain_len:
         raise ValueError("polynomial longer than the target domain")

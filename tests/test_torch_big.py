@@ -37,7 +37,7 @@ from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, RescuePrime
 from stark_anatomy_tpu_torch.ops import field_kernels as fk
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
 from stark_anatomy_tpu_torch.ops.limbs import random_felt_words, to_numpy, to_tensor
-from stark_anatomy_tpu_torch.parallel import make_mesh
+from stark_anatomy_tpu_torch.parallel import distributed, make_mesh
 from stark_anatomy_tpu_torch.reference import to_reference_limbs
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden", "proof_rescue_chain1.json")
@@ -319,7 +319,7 @@ def test_fri_with_round_0_committed_chunked_and_offloaded_gives_the_same_transcr
     assert ok
 
 
-# -- (h) a mesh without a group -------------------------------------------------------
+# -- (h) a mesh at big domains ---------------------------------------------------------
 
 
 class _Recorder(TorchDispatchMode):
@@ -339,12 +339,29 @@ class _Recorder(TorchDispatchMode):
         return out
 
 
-def test_a_mesh_without_a_group_is_refused_before_any_allocation_at_big_domains(monkeypatch):
+@pytest.fixture
+def one_process_group(tmp_path, monkeypatch):
+    """A torch.distributed group of this process alone (gloo), destroyed
+    after the test."""
+    for name in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(name, raising=False)
+    assert distributed.init("file://" + str(tmp_path / "store"), 1, 0, device="cpu")
+    yield distributed.world_group()
+    torch.distributed.destroy_process_group()
+
+
+@pytest.mark.parametrize("group", ["no-group", "one-process-group"])
+def test_a_mesh_without_a_group_is_refused_before_any_allocation_at_big_domains(monkeypatch, request,
+                                                                                 group):
+    # one rule for every mesh: a block F/W at least _BIG_F_MIN is refused,
+    # and a world of one process holds the whole F
     rp, stark, boundary = _rescue()
     trace = rp.trace(INPUT)
-    meshed = Stark(stark.air, expansion_factor=4, num_colinearity_checks=2, mesh=make_mesh(8, "cpu"))
+    group = request.getfixturevalue("one_process_group") if group == "one-process-group" else None
+    meshed = Stark(stark.air, expansion_factor=4, num_colinearity_checks=2,
+                   mesh=make_mesh(8, "cpu", group=group))
     _force_big(monkeypatch, 256)
-    with _Recorder() as rec, pytest.raises(ValueError, match="big-domain path.*group prove"):
+    with _Recorder() as rec, pytest.raises(ValueError, match="F/W = .* big-domain size"):
         meshed.prove(trace, boundary, randomizer_seed=SEED)
     assert rec.ops == []
     monkeypatch.setattr(stark_mod, "_BIG_F_MIN", 1 << 20)

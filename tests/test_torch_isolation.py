@@ -56,6 +56,34 @@ def test_no_port_source_imports_jax_or_the_jax_package():
         assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def _uses_torch_distributed(path: str) -> bool:
+    """Whether a source imports torch.distributed or reaches it as an
+    attribute of torch."""
+    with open(path) as fh:
+        tree = ast.parse(fh.read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names = [node.module] + [f"{node.module}.{alias.name}" for alias in node.names]
+        elif isinstance(node, ast.Attribute) and getattr(node.value, "id", "") == "torch":
+            names = [f"torch.{node.attr}"]
+        else:
+            continue
+        if any(n == "torch.distributed" or n.startswith("torch.distributed.") for n in names):
+            return True
+    return False
+
+
+def test_only_the_mesh_and_distributed_modules_reach_torch_distributed():
+    # every exchange between processes goes through parallel/mesh.py; the
+    # process group is made in parallel/distributed.py
+    package = os.path.join(ROOT, "stark_anatomy_tpu_torch")
+    users = {os.path.relpath(p, package) for p in _port_sources()
+             if p.startswith(package + os.sep) and _uses_torch_distributed(p)}
+    assert users == {os.path.join("parallel", "mesh.py"), os.path.join("parallel", "distributed.py")}
+
+
 def test_kernel_sources_ship_with_the_package():
     for name in _build.SOURCES + _build.HEADERS:
         assert os.path.exists(os.path.join(_build.CSRC, name)), name

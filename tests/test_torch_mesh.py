@@ -1,8 +1,9 @@
 """PyTorch port, the mesh path: sharded NTT / LDE / commit and Stark(mesh=)
 against the JAX package on its 8-virtual-device CPU mesh and against the
 port's own single-device path, bit for bit (tolerance 0: exact integer math).
-The port's mesh here is S shards in one process on the CPU; two processes:
-tests/test_torch_multiprocess.py."""
+The port's mesh here is S shards in a world of one process on the CPU, made
+without a process group or through a one-process gloo group; two and four
+processes: tests/test_torch_multiprocess.py."""
 
 import jax
 import jax.numpy as jnp
@@ -38,7 +39,7 @@ from stark_anatomy_tpu_torch.parallel import (
 )
 from stark_anatomy_tpu_torch.iop import stark as stark_module
 from stark_anatomy_tpu_torch.parallel import mesh as meshmod
-from stark_anatomy_tpu_torch.parallel.mesh import block_start, holds_blocks, roll_left, upload_block
+from stark_anatomy_tpu_torch.parallel.mesh import block_start, gather, pair_exchange, roll_left, upload_block
 from stark_anatomy_tpu_torch.parallel.ntt_sharded import gathered_powers
 from stark_anatomy_tpu_torch.reference import (
     cyclic_to_natural,
@@ -320,14 +321,38 @@ def chain1():
     return air, trace, boundary, single.prove(trace, boundary, randomizer_seed=SEED), ref_proof
 
 
+@pytest.fixture
+def one_process_group(tmp_path, monkeypatch):
+    """A torch.distributed group of this process alone (gloo), destroyed
+    after the test."""
+    _no_distributed_env(monkeypatch)
+    assert distributed.init("file://" + str(tmp_path / "store"), 1, 0, device="cpu")
+    yield distributed.world_group()
+    torch.distributed.destroy_process_group()
+
+
+#: how a mesh's world of one process is made: without a process group, or
+#: through a torch.distributed group of this process alone
+GROUPS = ["no-group", "one-process-group"]
+
+
+def _group(request, how: str):
+    return request.getfixturevalue("one_process_group") if how == "one-process-group" else None
+
+
+@pytest.mark.parametrize("group", GROUPS)
 @pytest.mark.parametrize("shards", [2, 8])
-def test_prove_on_a_mesh_gives_the_single_device_bytes(chain1, shards):
+def test_prove_on_a_mesh_gives_the_single_device_bytes(chain1, request, shards, group):
+    # a mesh is block-local in every world, one process with or without a group
     air, trace, boundary, single_proof, ref_proof = chain1
-    mesh = make_mesh(shards, "cpu")
+    mesh = make_mesh(shards, "cpu", group=_group(request, group))
+    assert (mesh.world, mesh.rank) == (1, 0)
     stark = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=mesh)
     assert stark.device == "cpu" and stark.fri.mesh is mesh
     proof = stark.prove(trace, boundary, randomizer_seed=SEED)
-    assert mesh.exchanges == 4 * air.num_registers  # every column's LDE went through the mesh
+    # four exchanges a trace column's LDE, two a coset evaluation from
+    # cyclic coefficients: the zk randomizer, the excluded-row factor
+    assert mesh.exchanges == 4 * air.num_registers + 2 * 2
     assert proof == single_proof
     assert proof == ref_proof
     assert stark.verify(proof, boundary)
@@ -339,47 +364,28 @@ def test_prove_on_a_mesh_too_wide_for_the_domain_takes_the_single_device_transfo
     mesh = make_mesh(32, "cpu")  # 32 does not divide O / 32: no four-step transform
     stark = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=mesh)
     assert stark.prove(trace, boundary, randomizer_seed=SEED) == single_proof
-    assert mesh.exchanges == 0
+    # the trace columns (O = 64) and the zk coefficients (256) are shorter
+    # than S^2 = 1024 and are transformed whole; the excluded-row factor's
+    # coefficients are zero-padded to S^2 = F, which the four-step takes
+    assert mesh.exchanges == 2
 
 
-def test_resume_under_a_mesh_gives_the_same_bytes(chain1, tmp_path):
+@pytest.mark.parametrize("group", GROUPS)
+def test_resume_under_a_mesh_gives_the_same_bytes(chain1, tmp_path, request, group):
     air, trace, boundary, single_proof, _ = chain1
-    stark = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=make_mesh(8, "cpu"))
-    first = stark.prove(trace, boundary, randomizer_seed=SEED, checkpoint_dir=str(tmp_path))
-    assert first == single_proof and (tmp_path / "stark-pre-fri.npz").exists()
-    mesh = make_mesh(8, "cpu")
+    group, ckpt = _group(request, group), tmp_path / "ckpt"
+    stark = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=make_mesh(8, "cpu", group=group))
+    first = stark.prove(trace, boundary, randomizer_seed=SEED, checkpoint_dir=str(ckpt))
+    assert first == single_proof and (ckpt / "stark-pre-fri.npz").exists()
+    mesh = make_mesh(8, "cpu", group=group)
     resumed = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=mesh).prove(
-        trace, boundary, randomizer_seed=SEED, checkpoint_dir=str(tmp_path))
+        trace, boundary, randomizer_seed=SEED, checkpoint_dir=str(ckpt))
     assert resumed == single_proof
     assert mesh.exchanges == 0  # nothing was transformed again
     # the snapshot does not depend on the mesh: a prover without one resumes from it
     plain = Stark(air, expansion_factor=4, num_colinearity_checks=2, device="cpu")
     assert plain.prove(trace, boundary, randomizer_seed=SEED,
-                       checkpoint_dir=str(tmp_path)) == single_proof
-
-
-@pytest.fixture
-def one_process_group(tmp_path, monkeypatch):
-    """A torch.distributed group of this process alone (gloo), destroyed
-    after the test."""
-    _no_distributed_env(monkeypatch)
-    assert distributed.init("file://" + str(tmp_path / "store"), 1, 0, device="cpu")
-    yield distributed.world_group()
-    torch.distributed.destroy_process_group()
-
-
-def test_prove_through_a_one_process_group_gives_the_bytes_without_a_group(chain1, one_process_group):
-    # a mesh with a group takes the block-local prover, also for one process
-    air, trace, boundary, single_proof, ref_proof = chain1
-    mesh = make_mesh(8, "cpu", group=one_process_group)
-    assert (mesh.world, mesh.rank) == (1, 0)
-    stark = Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=mesh)
-    proof = stark.prove(trace, boundary, randomizer_seed=SEED)
-    # four exchanges a trace column's LDE, two a coset evaluation from
-    # cyclic coefficients: the zk randomizer, the excluded-row factor
-    assert mesh.exchanges == 4 * air.num_registers + 2 * 2
-    assert proof == single_proof == ref_proof
-    assert stark.verify(proof, boundary)
+                       checkpoint_dir=str(ckpt)) == single_proof
 
 
 @pytest.mark.parametrize("count,start", [(1, 0), (7, 5), (64, 0), (100, 29), (256, 1000)])
@@ -404,7 +410,8 @@ def test_gathered_powers_equal_entries_of_the_whole_table(n):
 def test_block_helpers_without_a_group_see_one_whole_block():
     mesh = make_mesh(8, "cpu")
     x = _codeword(64, seed=13)
-    assert not holds_blocks(mesh) and not holds_blocks(None) and block_start(64, mesh) == 0
+    assert block_start(64, mesh) == 0
+    assert torch.equal(gather(x, mesh), x) and torch.equal(pair_exchange(x, mesh), torch.cat([x[:, :32], x[:, 32:]]))
     for e in (0, 5, 64, 70):
         assert torch.equal(roll_left(x, e, mesh), torch.roll(x, -e, 1))
     got = mesh.owner_gather([(x, [63, 0, 9, 9]), (x[:2].contiguous(), torch.tensor([3]))])

@@ -59,8 +59,7 @@ from stark_anatomy_tpu_torch.parallel import (  # noqa: E402
     sharded_lde,
     sharded_ntt,
 )
-from stark_anatomy_tpu_torch.parallel.merkle_sharded import pair_exchange  # noqa: E402
-from stark_anatomy_tpu_torch.parallel.mesh import roll_left  # noqa: E402
+from stark_anatomy_tpu_torch.parallel.mesh import pair_exchange, roll_left  # noqa: E402
 from stark_anatomy_tpu_torch.reference import merkle_levels_as_rows, natural_to_cyclic  # noqa: E402
 
 WORLD = 2
@@ -213,7 +212,7 @@ def _sharded_task(world: int, rank: int, results: dict) -> None:
             [host_gather(pairs[:4].contiguous(), mesh), host_gather(pairs[4:].contiguous(), mesh)])
         results[f"s{s}_fold"] = host_gather(fold(block, *_fold_args(s), mesh), mesh)
         # the prover's next-row codeword of a block
-        rows = [Stark._next_rows(SimpleNamespace(expansion_shift=e, _group_mesh=mesh), block)
+        rows = [Stark._next_rows(SimpleNamespace(expansion_shift=e, mesh=mesh), block)
                 for e in NEXT_ROW_SHIFTS]
         results[f"s{s}_next_rows"] = np.concatenate([host_gather(r, mesh) for r in rows])
 
