@@ -125,10 +125,11 @@ INT32_OPS_PER_S = 33.5e12
 #: 5 key injections (10), the counter and the output xor (~6): 16 x 76, then
 #: 8 digit pairings, 2 conditional subtracts, one add and two products (8 +
 #: 24 + 12 + 120) = 1380, rounded up to 1450 for the 64-bit counters.
+#: trace_layout, an element: one Montgomery product by R^2 (60).
 OPS_PER_UNIT = {
     "fp_add": 12, "fp_sub": 12, "fp_mont_mul": 60, "fp_butterfly": 84, "fp_pow_const": 60,
     "fp_batch_inv": 60, "ntt_block": 84, "ntt_stage": 84, "ntt_grouped": 84, "blake2b_planes": 2496,
-    "zk_coefficients": 1450,
+    "zk_coefficients": 1450, "trace_layout": 60,
 }
 KERNEL_SOURCES = {
     "fp_add": ("stark_anatomy_tpu_torch/csrc/field.cu", "stark_anatomy_tpu/ops/field_pallas.py:140"),
@@ -143,13 +144,15 @@ KERNEL_SOURCES = {
     "blake2b_planes": ("stark_anatomy_tpu_torch/csrc/blake2b.cu", "stark_anatomy_tpu/ops/blake2b_pallas.py:68"),
     # not a Pallas kernel there: jax.random.bits and the field_jnp ops, fused by XLA
     "zk_coefficients": ("stark_anatomy_tpu_torch/csrc/zk.cu", "stark_anatomy_tpu/iop/stark.py:1443"),
+    # not a Pallas kernel there: the trace's layout in numpy, then device_put
+    "trace_layout": ("stark_anatomy_tpu_torch/csrc/trace_layout.cu", "stark_anatomy_tpu/iop/stark.py:1499"),
 }
 #: the kernels every Stark.prove launches. fp_butterfly (ntt_stage fuses the
 #: same arithmetic in place) and fp_pow_const (inv's chain runs inside
 #: fp_batch_inv) are on the ops surface only: a prove launches them no time
 #: and the kernels phase and the table hold them against their plain versions.
 PROVE_PATH_KERNELS = ("fp_add", "fp_sub", "fp_mont_mul", "fp_batch_inv", "ntt_block", "ntt_stage",
-                      "blake2b_planes", "zk_coefficients")
+                      "blake2b_planes", "zk_coefficients", "trace_layout")
 OPS_SURFACE_ONLY = ("fp_butterfly", "fp_pow_const")
 #: most fp_mont_mul launches a cold Rescue-Prime prove at chain 32765 may make
 #: (1234 while inv was scans of products; ~470 since it is fp_batch_inv)
@@ -1315,9 +1318,22 @@ def phase_big(chain: int = 32765, full_run: tuple | None = None, full: dict | No
     return info
 
 
-def table_cases(n: int, registers: int) -> tuple:
-    """The kernels' calls at the shapes a prove with FRI domain `n` and
-    `registers` trace columns gives them: name -> (kernel call, plain call,
+def layout_case(o: int, rows: int, registers: int, seed: int) -> tuple:
+    """trace_layout's inputs as a prove of `rows` trace rows on the omicron
+    domain `o` uploads them: the (rows, registers, 16) byte trace and the
+    (registers, 4, o - rows) pad words, on the card."""
+    from stark_anatomy_tpu_torch.ops import trace_layout
+    from stark_anatomy_tpu_torch.ops.limbs import random_felt_words, words_to_bytes
+
+    rng = np.random.default_rng(seed)
+    trace = words_to_bytes(random_felt_words(rng, rows * registers)).reshape(rows, registers, 16).copy()
+    return trace_layout.upload(trace, np.stack([random_felt_words(rng, o - rows) for _ in range(registers)]), "cuda")
+
+
+def table_cases(n: int, registers: int, o: int, rows: int) -> tuple:
+    """The kernels' calls at the shapes a prove with FRI domain `n`,
+    `registers` trace columns and `rows` trace rows on the omicron domain `o`
+    gives them: name -> (kernel call, plain call,
     units of work, bytes moved, launches per call[, the call to time when the
     compared one carries a copy]), and name -> the shape in words."""
     from stark_anatomy_tpu_torch.ops import blake2b as b2
@@ -1325,7 +1341,7 @@ def table_cases(n: int, registers: int) -> tuple:
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
     from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
-    from stark_anatomy_tpu_torch.ops import ntt_kernels
+    from stark_anatomy_tpu_torch.ops import ntt_kernels, trace_layout
     from stark_anatomy_tpu_torch.ops.field import PRIME
     from stark_anatomy_tpu_torch.utils import threefry
 
@@ -1365,6 +1381,7 @@ def table_cases(n: int, registers: int) -> tuple:
     scratch = blocked.clone()
     xp = x[:, :n_pow].contiguous()
     xi = inv_input(n, 26)
+    body, tail = layout_case(o, rows, registers, 27)
 
     def both(pair):
         return torch.cat(list(pair), dim=1)
@@ -1410,6 +1427,10 @@ def table_cases(n: int, registers: int) -> tuple:
         "zk_coefficients": (lambda: threefry.zk_coefficients(ZK_KEY, n // 4, "cuda"),
                             lambda: threefry.zk_coefficients_plain(ZK_KEY, n // 4, "cuda"),
                             n // 4, 16 * (n // 4), 1),
+        # 16 B read and 16 B written an element
+        "trace_layout": (lambda: trace_layout.mont_planes(body, tail),
+                         lambda: trace_layout.mont_planes_plain(body, tail),
+                         o * registers, 32 * o * registers, 1),
     }
     shapes = {name: f"n={n}" for name in cases}
     shapes["fp_pow_const"] = f"n={n_pow} e=p-2"
@@ -1418,6 +1439,7 @@ def table_cases(n: int, registers: int) -> tuple:
     shapes["ntt_grouped"] = f"n={n} g={g}"
     shapes["blake2b_planes"] = f"{msg_len} B x {leaves}"
     shapes["zk_coefficients"] = f"n={n // 4}"
+    shapes["trace_layout"] = f"O={o} T={rows} w={registers}"
     return cases, shapes
 
 
@@ -1456,24 +1478,30 @@ def in_pieces(fn, *args, piece: int = 1 << 24) -> torch.Tensor:
     return torch.cat([fn(*(a[:, i : i + piece] for a in args)) for i in range(0, n, piece)], dim=1)
 
 
-def big_cases(f: int, blk: int, registers: int):
+def big_cases(f: int, blk: int, registers: int, o: int, rows: int):
     """The kernels' calls at the shapes the big path (FRI domain f, chunks of
-    blk columns, `registers` trace columns) gives them: yields (name, shape,
+    blk columns, `registers` trace columns of `rows` rows on the omicron
+    domain o) gives them: yields (name, shape,
     kernel call, plain call) one case at a time, the inputs of each group
     of cases made just before it. The field ops at a chunk and at f (the F-point scalings
     and conversions), fp_batch_inv at a chunk (one a _bq_domain_chunk),
     ntt_block and every ntt_stage pass of the f-point coset transforms,
     blake2b_planes on a chunk's pair leaves (bq: 32 * registers B, zk and
     FRI round 0: 32 B), on a chunk's first node level (128 B) and on FRI
-    round 1's standard commit (32 B x f/4). The plain versions at f run in
-    pieces (in_pieces; the NTT's: ntt_kernels.PLAIN_PIECE butterflies)."""
+    round 1's standard commit (32 B x f/4), trace_layout on the whole trace.
+    The plain versions at f run in pieces (in_pieces; the NTT's:
+    ntt_kernels.PLAIN_PIECE butterflies)."""
     from stark_anatomy_tpu_torch.ops import blake2b as b2
     from stark_anatomy_tpu_torch.ops import blake2b_kernels as bk
     from stark_anatomy_tpu_torch.ops import field_kernels as fk
     from stark_anatomy_tpu_torch.ops import field_torch as ft
     from stark_anatomy_tpu_torch.ops import ntt as nttmod
-    from stark_anatomy_tpu_torch.ops import ntt_kernels
+    from stark_anatomy_tpu_torch.ops import ntt_kernels, trace_layout
 
+    body, tail = layout_case(o, rows, registers, 44)
+    yield ("trace_layout", f"O={o} T={rows} w={registers}", lambda: trace_layout.mont_planes(body, tail),
+           lambda: trace_layout.mont_planes_plain(body, tail))
+    del body, tail
     ops = (("fp_add", fk.add, ft.add), ("fp_sub", fk.sub, ft.sub), ("fp_mont_mul", fk.mont_mul, ft.mont_mul))
     x = edge_words(f, 43, canonical=True)  # the edge values up front
     for n in (blk, f):
@@ -1524,9 +1552,12 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
     from stark_anatomy_tpu_torch.ops.field import PRIME
     from stark_anatomy_tpu_torch.utils import threefry
 
-    paths = {"rescue_prime": (full["fri_domain"], full["registers"])}
+    def shape_of(info: dict) -> tuple:
+        return info["fri_domain"], info["registers"], info["omicron_domain"], info["rows"]
+
+    paths = {"rescue_prime": shape_of(full)}
     for air, info in (airs or {}).items():
-        paths[air] = (info["fri_domain"], info["registers"])
+        paths[air] = shape_of(info)
     main = paths["rescue_prime"]
     compared: dict = {}  # (kernel, shape) -> max abs err
 
@@ -1542,7 +1573,8 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
 
     compared_at = {name: [] for name in OPS_PER_UNIT}
     if big:
-        for name, shape, kernel, plain in big_cases(big["fri_domain"], big["chunk"], big["registers"]):
+        for name, shape, kernel, plain in big_cases(big["fri_domain"], big["chunk"], big["registers"],
+                                                    big["omicron_domain"], big["rows"]):
             compared_at[name].append({"paths": ["big"], "shape": shape,
                                       "max_abs_err": compare(name, kernel, plain, shape)})
         torch.cuda.empty_cache()
@@ -1620,6 +1652,18 @@ def phase_table(results: dict, full: dict, airs: dict | None, mesh: dict | None,
     zk_row[f"ms_n_{size}"] = time_ms(lambda: threefry.zk_coefficients(ZK_KEY, size, "cuda"), reps=5)
     zk_row[f"bound_ms_n_{size}"] = max(OPS_PER_UNIT["zk_coefficients"] * size / INT32_OPS_PER_S,
                                        16 * size / DEVICE_MEMORY_BYTES_PER_S) * 1e3
+    # trace_layout at the larger cells' omicron domains (prod80.f26, f28: 159
+    # pad rows), beside the route it replaces on the card, mont_planes_plain:
+    # a permute, a concatenation and one to_mont launch a column
+    from stark_anatomy_tpu_torch.ops import trace_layout
+
+    layout_row = next(row for row in table if row["name"] == "trace_layout")
+    for o in (1 << 22, 1 << 24):
+        body, tail = layout_case(o, o - 159, main[1], 28)
+        layout_row[f"ms_o_{o}"] = time_ms(lambda: trace_layout.mont_planes(body, tail), reps=5)
+        layout_row[f"plain_ms_o_{o}"] = time_ms(lambda: trace_layout.mont_planes_plain(body, tail), reps=5)
+        layout_row[f"bound_ms_o_{o}"] = 32 * o * main[1] / DEVICE_MEMORY_BYTES_PER_S * 1e3
+        del body, tail
     inv_row = next(row for row in table if row["name"] == "fp_batch_inv")
     inv_row["launches_per_call"] = len(fk.inv_plan(n)) * 2 - 1
     if inv:

@@ -232,6 +232,17 @@ __device__ __forceinline__ Fe mont_one() {
   return r;
 }
 
+// R^2 mod p = 2^256 mod p (ops/limbs.py R2_MOD_P): mont_mul(x, r2_mod_p())
+// lifts a standard-form x to Montgomery form, as to_mont does.
+__device__ __forceinline__ Fe r2_mod_p() {
+  Fe r;
+  r.w[0] = 0x0E778236u;
+  r.w[1] = 0x5BD53A7Fu;
+  r.w[2] = 0x1A6AEDC2u;
+  r.w[3] = 0xAAF4AD9Au;
+  return r;
+}
+
 __device__ __forceinline__ Fe sqr_n(Fe x, int n) {
 #pragma unroll 1
   for (int i = 0; i < n; ++i) x = mont_mul(x, x);

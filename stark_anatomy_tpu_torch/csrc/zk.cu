@@ -34,16 +34,6 @@ namespace {
 constexpr int kThreads = 256;
 constexpr uint32_t kParity = 0x1BD11BDAu;  // threefry's key-schedule constant
 
-// R^2 mod p = 2^256 mod p (ops/limbs.py R2_MOD_P), little-endian words
-__device__ __forceinline__ fp::Fe r2_mod_p() {
-  fp::Fe r;
-  r.w[0] = 0x0E778236u;
-  r.w[1] = 0x5BD53A7Fu;
-  r.w[2] = 0x1A6AEDC2u;
-  r.w[3] = 0xAAF4AD9Au;
-  return r;
-}
-
 __device__ __forceinline__ void mix(uint32_t& x0, uint32_t& x1, int rot) {
   x0 += x1;
   x1 = __funnelshift_l(x1, x1, rot) ^ x0;
@@ -93,7 +83,7 @@ zk_coefficients_kernel(uint32_t k0, uint32_t k1, unsigned long long n, long star
   }
   lo = fp::cond_sub_p(lo, 0u);
   hi = fp::cond_sub_p(hi, 0u);
-  const fp::Fe r2 = r2_mod_p();
+  const fp::Fe r2 = fp::r2_mod_p();
   fp::store(out, out_stride, i, fp::mont_mul(fp::add(fp::mont_mul(hi, r2), lo), r2));
 }
 

@@ -115,6 +115,7 @@ from stark_anatomy_tpu_torch.iop.merkle import (
 from stark_anatomy_tpu_torch.iop.proof_stream import ProofStream, ProofStreamError
 from stark_anatomy_tpu_torch.ops import field_kernels as fk
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
+from stark_anatomy_tpu_torch.ops import trace_layout
 from stark_anatomy_tpu_torch.ops.field import (
     GENERATOR,
     PRIME,
@@ -129,6 +130,7 @@ from stark_anatomy_tpu_torch.ops.host_pool import HostPool, copied
 from stark_anatomy_tpu_torch.ops.limbs import (
     bytes_to_words,
     copy_to_numpy,
+    ints_to_bytes,
     ints_to_words,
     mont,
     require_device,
@@ -662,20 +664,39 @@ class Stark:
 
     def _trace_lde(self, trace, as_bytes, randomizer, device) -> List[torch.Tensor]:
         """Pad the trace to the omicron domain with pseudorandom rows and
-        extend every column to the FRI coset."""
-        o, w = self.omicron_domain_length, self.num_registers
+        extend every column to the FRI coset.
+
+        The O rows this process transforms (under a mesh whose four-step
+        transform fits the domain, its block of O/W) are uploaded as the
+        trace's bytes, an int trace encoded first, beside the standard-form
+        words of the pad rows among them, and laid out as Montgomery word
+        planes on the device (ops/trace_layout.py: one kernel launch on a
+        CUDA device)."""
+        o, f, w, mesh = self.omicron_domain_length, self.fri_domain_length, self.num_registers, self.mesh
         t_len = trace.shape[0]
+        sharded = mesh is not None and four_step_fits(o, mesh.shards)
+        start = block_start(o, mesh) if sharded else 0
+        stop = start + (o // mesh.world if sharded else o)
+        telemetry.count("lde-layout.device")
         with telemetry.phase("lde-host"):
-            pad = [[randomizer(r, j) for j in range(w)] for r in range(t_len, o)]
-            columns = []
-            for j in range(w):
-                pad_words = ints_to_words([row[j] for row in pad])
-                if as_bytes:
-                    body = bytes_to_words(np.ascontiguousarray(trace[:, j, :]))
+            if not as_bytes:
+                trace = ints_to_bytes(trace).reshape(t_len, w, 16)
+            pad = [[randomizer(r, j) for j in range(w)] for r in range(max(start, t_len), max(stop, t_len))]
+            pad_words = np.stack([ints_to_words([row[j] for row in pad]) for j in range(w)])
+        with telemetry.phase("lde-upload"):
+            body, tail = trace_layout.upload(trace[min(start, t_len) : min(stop, t_len)], pad_words, device)
+        with telemetry.phase("lde-layout"):
+            planes = trace_layout.mont_planes(body, tail)
+        del body, tail  # the bytes go back to the allocator before the transforms
+        lde = []
+        for column in planes:
+            with telemetry.phase("lde-ntt"):
+                if sharded:
+                    lde.append(sharded_lde(column, f, self.offset, mesh))
                 else:
-                    body = ints_to_words([int(v) for v in trace[:, j]])
-                columns.append(np.concatenate([body, pad_words], axis=1))
-        return [self.column_lde_words(c, device, self.mesh) for c in columns]
+                    cw = nttmod.coset_evaluate(nttmod.intt(column), f, self.offset)
+                    lde.append(cw if mesh is None else shard(cw, mesh))
+        return lde
 
     def _boundary_quotients(self, t_lde, bps, device, x_cw=None) -> List[torch.Tensor]:
         """Standard-form boundary quotients (t_j - B_j) / Z_j, with ONE

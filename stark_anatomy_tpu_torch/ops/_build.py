@@ -28,7 +28,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("field.cu", "inv.cu", "ntt.cu", "blake2b.cu", "zk.cu")
+SOURCES = ("field.cu", "inv.cu", "ntt.cu", "blake2b.cu", "zk.cu", "trace_layout.cu")
 HEADERS = ("field.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -50,6 +50,7 @@ SIGNATURES = {
     "ntt_grouped": [_p, _l, _p, _l, _p, _l, _l, _i, _i, _u, _u, _u, _u, _p],
     "blake2b_planes": [_p, _l, _i, _i, _p, _l, _l, _p],
     "zk_coefficients": [_u, _u, _l, _l, _p, _l, _p, _l, _p],
+    "trace_layout": [_p, _l, _i, _p, _l, _p, _l, _l, _p],
 }
 
 #: launches per kernel since the last reset_launch_counts().

@@ -62,11 +62,17 @@ def int_to_words(value: int) -> tuple:
     return tuple((value >> (WORD_BITS * i)) & WORD_MASK for i in range(NUM_WORDS))
 
 
-def ints_to_words(values: Sequence[int] | np.ndarray) -> np.ndarray:
-    """Batch of field elements (reduced mod p here) -> (4, n) uint32."""
+def ints_to_bytes(values: Sequence[int] | np.ndarray) -> np.ndarray:
+    """Batch of field elements (reduced mod p here) -> (n, 16) uint8
+    little-endian encodings, in the batch's row-major order."""
     flat = [int(v) % PRIME for v in np.asarray(values, dtype=object).reshape(-1)]
     buf = b"".join(v.to_bytes(16, "little") for v in flat)
-    return bytes_to_words(np.frombuffer(buf, dtype=np.uint8).reshape(-1, 16))
+    return np.frombuffer(buf, dtype=np.uint8).reshape(-1, 16)
+
+
+def ints_to_words(values: Sequence[int] | np.ndarray) -> np.ndarray:
+    """Batch of field elements (reduced mod p here) -> (4, n) uint32."""
+    return bytes_to_words(ints_to_bytes(values))
 
 
 def words_to_ints(words: np.ndarray) -> np.ndarray:

@@ -131,6 +131,51 @@ def test_the_golden_proof_draws_its_zk_coefficients_in_one_kernel_launch(card):
     assert _build.launch_counts()["zk_coefficients"] == 1
 
 
+@pytest.mark.parametrize("o,t_len,w", [(1 << 16, (1 << 16) - 128, 2), (1 << 16, (1 << 16) - 159, 3),
+                                       (1 << 16, 1 << 16, 1), (1 << 20, 1048417, 2)])
+def test_trace_layout_is_one_launch_equal_to_the_cpu_route(card, o, t_len, w):
+    import numpy as np
+
+    from stark_anatomy_tpu_torch.ops import _build, trace_layout
+    from stark_anatomy_tpu_torch.ops.field import PRIME
+    from stark_anatomy_tpu_torch.ops.limbs import random_felt_words, words_to_bytes
+
+    rng = np.random.default_rng(o + t_len + w)
+    trace = words_to_bytes(random_felt_words(rng, t_len * w)).reshape(t_len, w, 16).copy()
+    trace[0, 0] = np.frombuffer((PRIME - 1).to_bytes(16, "little"), np.uint8)
+    trace[-1, w - 1] = 0
+    pad = np.stack([random_felt_words(rng, o - t_len) for _ in range(w)])
+    body, tail = trace_layout.upload(trace, pad, "cuda")
+    _build.reset_launch_counts()
+    got = trace_layout.mont_planes(body, tail)
+    torch.cuda.synchronize()  # a fault during the run surfaces here
+    assert {k: v for k, v in _build.launch_counts().items() if v} == {"trace_layout": 1}
+    want = trace_layout.mont_planes(*trace_layout.upload(trace, pad, "cpu"))
+    assert got.shape == (w, 4, o) and torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("route", ["byte trace", "int trace", "forced big path", "mesh"])
+def test_every_route_proves_through_one_trace_layout_launch_to_the_cpu_bytes(card, monkeypatch, route):
+    from stark_anatomy_tpu_torch.iop import stark as stark_mod
+    from stark_anatomy_tpu_torch.ops import _build
+    from stark_anatomy_tpu_torch.parallel.mesh import make_mesh
+
+    proofs = {}
+    for device in ("cpu", "cuda"):
+        rp, air, stark = chip_smoke.rescue_setup(15, 2, device)
+        boundary = air.boundary_constraints(rp.chain_output(7, 15))
+        trace = rp.trace(7, 15) if device == "cuda" and route == "int trace" else rp.trace_bytes(7, 15)
+        if device == "cuda" and route == "forced big path":
+            monkeypatch.setattr(stark_mod, "_BIG_F_MIN", 1)
+            monkeypatch.setattr(stark_mod, "_BIG_CHUNK", 1 << 12)
+        if device == "cuda" and route == "mesh":
+            stark = stark_mod.Stark(air, expansion_factor=4, num_colinearity_checks=2, mesh=make_mesh(8))
+        _build.reset_launch_counts()
+        proofs[device] = stark.prove(trace, boundary, randomizer_seed=b"layout-card")
+    assert _build.launch_counts()["trace_layout"] == 1
+    assert proofs["cuda"] == proofs["cpu"] and stark.verify(proofs["cuda"], boundary)
+
+
 def _big_inputs(chain, device):
     rp, air, stark = chip_smoke.rescue_setup(chain, 2, device)
     if chain == 1:

@@ -17,8 +17,8 @@ from stark_anatomy_tpu_torch.ops import blake2b_kernels as bk
 from stark_anatomy_tpu_torch.ops import field_kernels as fk
 from stark_anatomy_tpu_torch.ops import field_torch as ft
 from stark_anatomy_tpu_torch.ops import ntt as nttmod
-from stark_anatomy_tpu_torch.ops import ntt_kernels
-from stark_anatomy_tpu_torch.ops.limbs import random_felt_words, to_tensor
+from stark_anatomy_tpu_torch.ops import ntt_kernels, trace_layout
+from stark_anatomy_tpu_torch.ops.limbs import random_felt_words, to_tensor, words_to_bytes
 from stark_anatomy_tpu_torch.reference import from_reference_digests, from_reference_limbs
 from stark_anatomy_tpu_torch.utils import threefry
 
@@ -89,7 +89,7 @@ def test_kernel_sources_ship_with_the_package():
         assert os.path.exists(os.path.join(_build.CSRC, name)), name
     assert set(_build.SIGNATURES) == set(_build.LAUNCHES) == {
         "fp_add", "fp_sub", "fp_mont_mul", "fp_butterfly", "fp_pow_const", "fp_batch_inv",
-        "ntt_block", "ntt_stage", "ntt_grouped", "blake2b_planes", "zk_coefficients"}
+        "ntt_block", "ntt_stage", "ntt_grouped", "blake2b_planes", "zk_coefficients", "trace_layout"}
 
 
 def test_default_device_raises_without_a_card_instead_of_running_on_the_cpu():
@@ -134,6 +134,9 @@ def test_cpu_tensors_take_the_plain_versions_and_launch_nothing():
     assert torch.equal(bk.blake2b_planes(msg, 32), blake2b_planes_plain(msg, 32))
     key = np.array([1, 2], dtype=np.uint32)
     assert torch.equal(threefry.zk_coefficients(key, 64, "cpu"), threefry.zk_coefficients_plain(key, 64, "cpu"))
+    body = torch.from_numpy(words_to_bytes(random_felt_words(rng, 128)).reshape(32, 4, 16))
+    pad = a.view(4, 4, 16)
+    assert torch.equal(trace_layout.mont_planes(body, pad), trace_layout.mont_planes_plain(body, pad))
     assert _build.launch_counts() == before
     assert _build._lib is None  # nothing was built or loaded for CPU work
 

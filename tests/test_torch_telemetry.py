@@ -20,6 +20,7 @@ import torch
 
 from stark_anatomy_tpu_torch.iop.stark import Stark
 from stark_anatomy_tpu_torch.models.rescue_prime import RescuePrime, RescuePrimeAir
+from stark_anatomy_tpu_torch.parallel.mesh import make_mesh
 from stark_anatomy_tpu_torch.utils import telemetry
 
 INPUT = 20260817
@@ -27,6 +28,8 @@ TAIL = 64  # FRI codewords of at most 64 values finish on the host
 #: the spans the benchmark's per-layer metrics read, with their meaning
 BENCHMARK_SPANS = ("prove.trace-lde", "prove.zk-randomizer", "prove.quotients-combination",
                    "prove.fri", "prove.fri.host-tail", "prove.fri.grind")
+#: the calls-only entry under prove.trace-lde: the trace laid out on the device
+LDE_LAYOUT_COUNT = "lde-layout.device"
 
 
 def _setup(device: str):
@@ -73,8 +76,10 @@ def test_a_cpu_prove_opens_every_span_the_expected_number_of_times():
     w = stark.num_registers
     calls = {k: v["calls"] for k, v in rep.items() if k.startswith("prove.") and k.count(".") > 1}
     assert calls == {
+        "prove.trace-lde.lde-layout.device": 1,
         "prove.trace-lde.lde-host": 1,
-        "prove.trace-lde.lde-upload": w,
+        "prove.trace-lde.lde-upload": 1,
+        "prove.trace-lde.lde-layout": 1,
         "prove.trace-lde.lde-ntt": w,
         "prove.bq-commit.merkle-commit": 1,
         "prove.zk-randomizer.zk-draw": 1,
@@ -91,6 +96,27 @@ def test_a_cpu_prove_opens_every_span_the_expected_number_of_times():
     # nothing waits on a device on the CPU, and nothing has a device clock
     assert _waits(rep) == 0
     assert not [k for k in rep if k.endswith(telemetry.DEVICE_SUFFIX)]
+
+
+@pytest.mark.parametrize("mesh", [False, True], ids=["no mesh", "mesh"])
+@pytest.mark.parametrize("as_bytes", [True, False], ids=["byte trace", "int trace"])
+def test_the_trace_lde_counts_where_the_trace_was_laid_out(as_bytes, mesh):
+    """A byte trace, and an int trace once encoded, is uploaded once and laid
+    out in one lde-layout span on the prover's device, with a mesh or
+    without; then one lde-ntt a column. Every form gives the same proof."""
+    rp, stark, boundary = _setup("cpu")
+    if mesh:
+        stark = Stark(stark.air, expansion_factor=4, num_colinearity_checks=2, grinding_bits=2,
+                      fri_host_tail_n=TAIL, mesh=make_mesh(4, "cpu"))
+    trace = rp.trace_bytes(INPUT) if as_bytes else rp.trace(INPUT)
+    telemetry.reset()
+    proof = stark.prove(trace, boundary, randomizer_seed=b"telemetry")
+    rep = telemetry.report()
+    w = stark.num_registers
+    lde = {k[len("prove.trace-lde."):]: v["calls"] for k, v in rep.items() if k.startswith("prove.trace-lde.")}
+    assert lde == {LDE_LAYOUT_COUNT: 1, "lde-host": 1, "lde-upload": 1, "lde-layout": 1, "lde-ntt": w}
+    assert rep["prove.trace-lde.lde-host"]["seconds"] > 0
+    assert proof == _setup("cpu")[1].prove(rp.trace_bytes(INPUT), boundary, randomizer_seed=b"telemetry")
 
 
 def test_a_cpu_prove_makes_no_cuda_call(monkeypatch):
@@ -283,6 +309,8 @@ def test_under_a_profiler_every_span_is_a_range_under_its_name(tmp_path):
             ranges[e["name"]] = ranges.get(e["name"], 0) + 1
     opened = {}
     for name, v in rep.items():
+        if name.endswith(LDE_LAYOUT_COUNT):  # a count, not a span: no range
+            continue
         short = name.split(".")[-1] if not name.startswith("prove.") or name.count(".") > 1 else name
         opened[short] = opened.get(short, 0) + v["calls"]
     assert opened == {k: ranges.get(k, 0) for k in opened}

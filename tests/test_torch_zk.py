@@ -40,13 +40,18 @@ KEYS = {
 }
 
 
+def kernel_source(name: str) -> str:
+    with open(os.path.join(_build.CSRC, name)) as fh:
+        return fh.read()
+
+
 def kernel_constants() -> tuple:
-    """(R^2 mod p, the key-schedule parity) as csrc/zk.cu writes them."""
-    with open(os.path.join(_build.CSRC, "zk.cu")) as fh:
-        src = fh.read()
-    body = src[src.index("fp::Fe r2_mod_p()"):]
+    """(R^2 mod p as csrc/field.cuh writes it for zk.cu, the key-schedule
+    parity as csrc/zk.cu writes it)."""
+    header = kernel_source("field.cuh")
+    body = header[header.index("Fe r2_mod_p()"):]
     words = [int(w, 16) for w in re.findall(r"r\.w\[\d\] = (0x[0-9A-Fa-f]+)u;", body)[:4]]
-    parity = int(re.search(r"kParity = (0x[0-9A-Fa-f]+)u;", src).group(1), 16)
+    parity = int(re.search(r"kParity = (0x[0-9A-Fa-f]+)u;", kernel_source("zk.cu")).group(1), 16)
     return sum(w << (32 * j) for j, w in enumerate(words)), parity
 
 
@@ -117,6 +122,7 @@ def check(key, n: int, columns, got: torch.Tensor) -> None:
 
 
 def test_the_kernel_constants_are_r2_mod_p_and_threefrys_parity():
+    assert "fp::r2_mod_p()" in kernel_source("zk.cu")
     assert R2_KERNEL == R2_MOD_P
     assert PARITY == 0x1BD11BDA
 
